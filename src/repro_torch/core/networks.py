@@ -64,10 +64,13 @@ def actor_init(gen: torch.Generator, device="cpu",
     return to_device(p, device)
 
 
-def actor_forward(params: Dict, s: torch.Tensor):
-    """Plain (differentiable) actor: s [B, 52] -> (disc_logits [B,4,5],
-    mu [B,30], log_std [B,30], gate probs [B,K])."""
-    disc, mu, log_std, g = actor_forward_plain(params, s)
+def actor_forward(params: Dict, s: torch.Tensor,
+                  forward=actor_forward_plain):
+    """Actor: s [B, 52] -> (disc_logits [B,4,5], mu [B,30], log_std [B,30],
+    gate probs [B,K]).  ``forward`` computes the flat heads: the plain
+    (differentiable) version by default, ``kernels.actor_moe.actor_forward``
+    to act through the kernel."""
+    disc, mu, log_std, g = forward(params, s)
     return disc.reshape(s.shape[0], N_DISC, N_DISC_OPTIONS), mu, log_std, g
 
 

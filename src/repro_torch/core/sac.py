@@ -5,7 +5,7 @@ The critics see only the continuous action (82 = 52 + 30); the 4 discrete
 mesh/SC heads are trained with a policy gradient on the TD advantage.
 :func:`update` takes gradients with autograd through the plain actor, as
 the reference differentiates its jnp actor.  Acting
-(:func:`policy_act_batch`) runs the actor through ``kernels.ops``: the
+(:func:`policy_act_batch`) runs the actor through ``kernels.actor_moe``: the
 CUDA kernel on the card, the plain version on the CPU.
 
 Device noise is an explicit argument (``noise``) or is drawn from the
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import networks as nets
 from repro_torch.core.actions import N_CONT, N_DISC, N_DISC_OPTIONS
-from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import actor_moe
 from repro_torch.optim.adam import (AdamState, adam_init, adam_update,
                                    tree_leaves, tree_map)
 
@@ -196,11 +196,12 @@ def policy_act_batch(actor_params: Dict, s: torch.Tensor, *,
                      gen: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample actions for a (B, 52) batch of env states — the act path of
-    the vectorised engine.  The MoE forward runs through ``kernels.ops``
-    (the CUDA kernel for a CUDA tensor)."""
+    the vectorised engine.  The MoE forward runs through
+    ``kernels.actor_moe`` (the CUDA kernel for a CUDA tensor)."""
     if noise is None:
         noise = nets.draw_policy_noise(s.shape[0], gen, s.device)
-    disc_logits, mu, log_std, _ = kernel_ops.actor_forward(actor_params, s)
+    disc_logits, mu, log_std, _ = nets.actor_forward(
+        actor_params, s, actor_moe.actor_forward)
     a = torch.tanh(mu + torch.exp(log_std) * noise.normal)
     a_d = torch.argmax(disc_logits + noise.gumbel, dim=-1)
     return a, a_d

@@ -57,7 +57,6 @@ class SearchConfig:
     reset_period: int = 500
     seed: int = 0
     early_stop_patience: int = 1500
-    update_every: int = 1
     wm_batch: int = 256
     surrogate_every: int = 8
     verbose: bool = False

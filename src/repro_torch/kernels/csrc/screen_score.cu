@@ -63,7 +63,7 @@ screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
     float acc[KMAX];
     const float bias = b1[t];
 #pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = bias;
+    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = 0.0f;
 #pragma unroll 2
     for (int i = 0; i < IN; ++i) {
       const float w = w1[i * H1 + t];
@@ -73,7 +73,7 @@ screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
     }
 #pragma unroll
     for (int kk = 0; kk < KMAX; ++kk)
-      if (kk < K) h1[kk][t] = gelu_tanh(acc[kk]);
+      if (kk < K) h1[kk][t] = gelu_tanh(acc[kk] + bias);
   }
   __syncthreads();
 
@@ -81,7 +81,7 @@ screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
     float acc[KMAX];
     const float bias = b2[t];
 #pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = bias;
+    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = 0.0f;
 #pragma unroll 4
     for (int i = 0; i < H1; ++i) {
       const float w = w2[i * H2 + t];
@@ -91,7 +91,7 @@ screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
     }
 #pragma unroll
     for (int kk = 0; kk < KMAX; ++kk)
-      if (kk < K) h2[kk][t] = gelu_tanh(acc[kk]);
+      if (kk < K) h2[kk][t] = gelu_tanh(acc[kk] + bias);
   }
   __syncthreads();
 
@@ -99,9 +99,9 @@ screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
     float p[NT];
 #pragma unroll
     for (int o = 0; o < NT; ++o) {
-      float acc = b3[o];
+      float acc = 0.0f;
       for (int i = 0; i < H2; ++i) acc = fmaf(h2[t][i], w3[i * NT + o], acc);
-      p[o] = acc;
+      p[o] = acc + b3[o];
     }
     const float* w = weights + b * 3;  // (w_perf, w_power, w_area)
     score[b * K + t] = (w[1] * p[0] + w[2] * p[2]) - w[0] * p[1];

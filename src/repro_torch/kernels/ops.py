@@ -1,5 +1,4 @@
-"""The search-loop kernels' launch counters, and the actor forward in the
-reference's discrete-logit layout.
+"""The search-loop kernels' launch counters.
 
 ``launch_counts`` reads how many CUDA launches each kernel's wrapper made;
 ``reset_launch_counts`` sets them to zero.
@@ -8,18 +7,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-import torch
-
 from repro_torch.kernels import actor_moe, screen_score
 
 KERNELS = {"actor_moe": actor_moe, "screen_score": screen_score}
-
-
-def actor_forward(params: Dict, s: torch.Tensor):
-    """(disc_logits [B, 4, 5], mu [B, 30], log_std [B, 30], gate [B, 4]):
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
-    disc, mu, log_std, gate = actor_moe.actor_forward(params, s)
-    return disc.reshape(s.shape[0], 4, 5), mu, log_std, gate
 
 
 def launch_counts() -> Dict[str, int]:

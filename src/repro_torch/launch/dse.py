@@ -46,7 +46,7 @@ def result_row(res: SearchResult) -> Dict:
 
 def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         method: str = "sac", out_dir: str, seed: int = 0, seq_len: int = 2048,
-        batch: int = 3, update_every: int = 1, verbose: bool = False,
+        batch: int = 3, verbose: bool = False,
         engine: str = "vec", n_envs: int = 64,
         surrogate_gate: bool = True, screen_k: Optional[int] = None,
         gate_threshold: Optional[float] = None, phase: str = "decode",
@@ -69,8 +69,7 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         gate_kw["gate_threshold"] = gate_threshold
     rows = []
     for node in nodes:
-        sc = SearchConfig(episodes=episodes, seed=seed,
-                          update_every=update_every, verbose=verbose,
+        sc = SearchConfig(episodes=episodes, seed=seed, verbose=verbose,
                           **gate_kw)
         res = run_search(wl, node, high_perf=high_perf, search=sc,
                          n_envs=n_envs, device=device)
@@ -112,7 +111,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--batch", type=int, default=3)
     ap.add_argument("--phase", default="decode", choices=list(PHASES))
     ap.add_argument("--dtype", default="native", choices=list(DTYPES))
-    ap.add_argument("--update-every", type=int, default=1)
+    ap.add_argument("--update-every", type=int, default=1,
+                    help="scalar engine only; the vec engine takes 1")
     ap.add_argument("--engine", default="vec", choices=["scalar", "vec"])
     ap.add_argument("--n-envs", type=int, default=64)
     ap.add_argument("--devices", type=int, default=None)
@@ -126,6 +126,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if a.method != "sac" or a.engine != "vec":
         ap.error(f"--method {a.method} --engine {a.engine}: only --method "
                  "sac --engine vec is ported to repro_torch")
+    if a.update_every != 1:
+        ap.error("--update-every: the vec engine updates per dispatch "
+                 "(SearchConfig.updates_per_dispatch); only 1 is accepted")
     if a.devices is not None:
         ap.error("--devices: sharding over several cards is not ported")
     if a.n_envs < 1:
@@ -138,7 +141,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         int(x) for x in a.nodes.split(",")]
     run(a.arch, nodes=nodes, mode=a.mode, episodes=a.episodes,
         method=a.method, out_dir=a.out, seed=a.seed, seq_len=a.seq_len,
-        batch=a.batch, update_every=a.update_every, verbose=a.verbose,
+        batch=a.batch, verbose=a.verbose,
         engine=a.engine, n_envs=a.n_envs,
         surrogate_gate=not a.no_surrogate_gate, screen_k=a.screen_k,
         gate_threshold=a.gate_threshold, phase=a.phase, dtype=a.dtype,

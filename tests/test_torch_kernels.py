@@ -15,6 +15,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.ppa import surrogate as ref_sur
 from repro_torch import convert
+from repro_torch.core import networks as nets
 from repro_torch.kernels import actor_moe, ops, ref, screen_score
 from repro_torch.ppa import surrogate as sur
 
@@ -51,7 +52,7 @@ def _screen_inputs(b, k):
 def test_actor_plain_matches_reference_and_pallas(b):
     jp, tp = _actor_params()
     s = _states(b)
-    got = ops.actor_forward(tp, torch.as_tensor(s))
+    got = nets.actor_forward(tp, torch.as_tensor(s), actor_moe.actor_forward)
     want = ref_ref.actor_forward_reference(jp, jnp.asarray(s))
     pallas = ref_ops.actor_forward(jp, jnp.asarray(s))     # interpret mode
     for g, w, p in zip(got, want, pallas):

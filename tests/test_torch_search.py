@@ -106,3 +106,13 @@ def test_cli_writes_the_four_artifacts(tmp_path, capsys):
     assert "[dse] smolvlm 3nm [sac]" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         dse.main(["--method", "random", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--update-every", "4"], ["--devices", "2"],
+                                   ["--engine", "scalar"]])
+def test_cli_rejects_what_is_not_ported(flags, capsys):
+    """Flags the vec engine does not read are refused, not ignored."""
+    with pytest.raises(SystemExit) as exc:
+        dse.main(flags + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert flags[0] in capsys.readouterr().err
