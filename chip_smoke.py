@@ -12,18 +12,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   3. parity on the card: each kernel against its plain PyTorch version at
      the main path's shapes and a ragged batch (rtol 1e-4, atol 1e-5), the
      actor also with heads, biases and gate set so that both log_std clips,
-     the saturated tanh and a peaked gate are reached; the batched env step
-     and the MPC rollouts on the card against the same on the CPU;
+     the saturated tanh and a peaked gate are reached; ``fused_mlp`` also
+     with bf16 input (3e-2); ``sumtree`` bitwise (float64 sums of final
+     children) at caps 8, 100, 257 and 100,000 with duplicates and a
+     scalar broadcast; the device PER's sampled indices and tree against
+     the host ``SumTree`` on the same uniforms; the batched env step and
+     the MPC rollouts on the card against the same on the CPU;
   4. timing: device time of each kernel and of its plain version (200
-     calls replayed from a CUDA graph, between CUDA events), the eager call
-     time with the host's work, and the least time the card could take;
-  5. the main path: ``repro_torch.launch.dse.run`` on ``cuda`` (Llama 3.1 8B
-     decode, seq 2048, batch 3, high-performance mode, node 3, 4,613
-     episodes, 64 envs, seed 0, gate threshold ``GATE_THRESHOLD``) with the
-     kernels' launch counts read around it; the chosen design is re-evaluated on the CPU by the plain
-     evaluator; two short same-seed runs must be identical, and a gate that
-     never opens must equal the ungated engine;
-  6. one JSON line per kernel set, then the result line.
+     calls replayed from a CUDA graph, between CUDA events; the plain
+     ``sumtree`` synchronises, so its eager time), the eager call time with
+     the host's work, and the least time the card could take;
+  5. the single-search path: ``repro_torch.launch.dse.run`` on ``cuda``
+     (Llama 3.1 8B decode, seq 2048, batch 3, high-performance mode, node
+     3, 4,613 episodes, 64 envs, seed 0, gate threshold ``GATE_THRESHOLD``)
+     with the kernels' launch counts read around it; the chosen design is
+     re-evaluated on the CPU by the plain evaluator; two short same-seed
+     runs must be identical, and a gate that never opens must equal the
+     ungated engine; a profile of 12 dispatches;
+  6. the campaign path: the paper's grid (Llama 3.1 8B and SmolVLM, both
+     modes, all 7 nodes: 28 cells in 4 mixed-node batches of 7 x 64 lanes,
+     4,613 episodes per cell, default gate, checkpoint every 8 dispatches)
+     through ``python -m repro_torch.launch.dse --campaign`` on ``cuda``,
+     with the launch counts read around it (``sumtree`` and ``fused_mlp``
+     must launch); each cell's best design re-evaluated on the CPU; a
+     profile of 12 dispatches of one such batch;
+  7. kill/resume on the card: a smaller campaign run once, run again and
+     killed after its second checkpoint, then resumed with ``--resume``;
+     its summaries (but their clock) and frontiers must equal the first
+     run's, bitwise;
+  8. one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -50,6 +67,17 @@ EPISODES, N_ENVS, NODE, SEED = 4613, 64, 3, 0
 # the CPU).  The main path is driven with this threshold instead, large
 # enough that the first calibration opens it, so that screen_score runs.
 GATE_THRESHOLD = 1e3
+# the campaign path: the paper's grid at full widths (campaign runs go to
+# the git-ignored experiments/campaigns/)
+CAMPAIGN_ROOT = os.path.join(ROOT, "experiments", "campaigns", "chip_smoke")
+GRID = dict(name="paper-grid", workloads=["llama3.1-8b", "smolvlm"],
+            nodes=[3, 5, 7, 10, 14, 22, 28], modes=["high_perf", "low_power"],
+            episodes=4613, lanes=64, max_envs=448, seed=0, seq_len=2048,
+            batch=3, checkpoint_every=8)
+KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
+                 modes=["low_power"], episodes=1280, lanes=64, max_envs=448,
+                 seed=0, seq_len=2048, batch=3, checkpoint_every=4)
+SUMTREE_CAP = 100_000
 
 
 def log(msg: str) -> None:
@@ -120,6 +148,27 @@ def screen_work(b: int, k: int, w_bytes: int) -> tuple:
     return flops, w_bytes + (b * 52 + b * k * 30 + b * 3 + b * k) * 4
 
 
+def mlp_work(b: int, d_out: int, x_bytes: int) -> tuple:
+    """The same for one ``fused_mlp`` call, 82 -> 128 -> 64 -> d_out."""
+    w = 82 * 128 + 128 + 128 * 64 + 64 + 64 * d_out + d_out
+    flops = b * 2 * (82 * 128 + 128 * 64 + 64 * d_out)
+    return flops, 4 * w + b * 82 * x_bytes + b * d_out * x_bytes
+
+
+def sumtree_work(idx: np.ndarray, cap: int, scalar: bool) -> tuple:
+    """The same for one ``sumtree`` call on these indices: every touched
+    node (the distinct leaves and their distinct ancestors) read and
+    written once as a float64, plus the int64 indices and the values."""
+    nodes = set()
+    for i in np.unique(idx) + cap:
+        i = int(i)
+        while i >= 1 and i not in nodes:
+            nodes.add(i)
+            i //= 2
+    return 0.0, 16 * len(nodes) + 8 * len(idx) + (8 if scalar else
+                                                     8 * len(idx))
+
+
 def main() -> None:
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -128,13 +177,17 @@ def main() -> None:
         fail(f"no src/repro_torch beside {__file__}: run from the repo")
     sys.path.insert(0, SRC)
     from repro_torch import device as device_mod
+    from repro_torch.campaign import CampaignStore, runner
     from repro_torch.configs import get_config
-    from repro_torch.core import mpc, sac
+    from repro_torch.core import mpc, replay, sac
     from repro_torch.core import world_model as wm
     from repro_torch.core.networks import to_device
     from repro_torch.core.env import VecDSEEnv
-    from repro_torch.core.search import SearchConfig, run_search
-    from repro_torch.kernels import actor_moe, build, ops, screen_score
+    from repro_torch.core import search as search_mod
+    from repro_torch.core.search import (SearchConfig, run_search,
+                                         run_search_cells)
+    from repro_torch.kernels import (actor_moe, build, ops, policy_mlp,
+                                     screen_score, sumtree)
     from repro_torch.launch import dse
     from repro_torch.optim.adam import tree_leaves
     from repro_torch.ppa import analytic as an
@@ -168,7 +221,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     actor = sac.create(SEED, dev).params.actor
     sur_params = sur.Surrogate.create(82, seed=SEED + 2, device=dev).params
-    errs = {"actor_moe": 0.0, "screen_score": 0.0}
+    errs = {"actor_moe": 0.0, "screen_score": 0.0, "sumtree": 0.0,
+            "fused_mlp": 0.0}
     names = ("disc", "mu", "log_std", "gate")
     # a fresh actor's heads (x1e-2) and gate (x0.01) keep every output near
     # 0.  "hot" scales the heads x5 and the gate x100 (one expert takes most
@@ -232,6 +286,93 @@ def main() -> None:
         if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
             fail(f"screen_score B={b} K={k} disagrees with the plain version "
                  f"(max abs err {err:.3e})")
+    # sumtree: bitwise against the plain version (float64 sums of final
+    # children), duplicates last-write-wins, a scalar broadcast, N > 1024
+    # split into ordered launches; the root against the sum of the leaves
+    nrng = np.random.default_rng(SEED)
+    for cap in (8, 100, 257, SUMTREE_CAP):
+        base = replay.SumTree(cap)
+        base.set_many(np.arange(cap), nrng.random(cap))
+        for n in (1, 64, 256, 448, 1500):
+            idx = nrng.integers(0, cap, n)
+            idx[-1] = idx[0]
+            for vals in (nrng.random(n), 0.25):
+                scalar = np.ndim(vals) == 0
+                want = torch.as_tensor(base.tree.copy())
+                sumtree.sumtree_set_many_plain(
+                    want, torch.as_tensor(idx),
+                    vals if scalar else torch.as_tensor(vals))
+                got = torch.as_tensor(base.tree.copy(), device=dev)
+                sumtree.sumtree_set_many_cuda(
+                    got, torch.as_tensor(idx, device=dev),
+                    vals if scalar else torch.as_tensor(vals, device=dev))
+                torch.cuda.synchronize()
+                got = got.cpu()
+                err = float((got - want).abs().max())
+                errs["sumtree"] = max(errs["sumtree"], err)
+                if not torch.equal(got, want):
+                    fail(f"sumtree cap {cap} N={n} scalar={scalar}: not "
+                         f"bitwise the plain version (max abs err {err:.3e})")
+                if not np.isclose(float(got[1]), float(got[cap:].sum()),
+                                  rtol=1e-12, atol=0):
+                    fail(f"sumtree cap {cap} N={n}: root != sum of leaves")
+    log("parity sumtree: bitwise == plain at caps 8/100/257/100000, "
+        "N 1/64/256/448/1500, per-leaf values and scalar broadcast; root == "
+        "sum of leaves (rtol 1e-12)")
+    # the device PER against the host SumTree: the same inserts and
+    # priority refreshes, then the host descent on the buffer's own uniforms
+    buf = replay.PERBuffer(52, 30, 4, seed=SEED, device=dev)
+    host = replay.SumTree(buf.capacity)
+    for rnd in range(6):
+        n = 448
+        host.set_many((buf.pos + np.arange(n)) % buf.capacity,
+                      buf.max_priority ** replay.ALPHA_PER)
+        buf.add_batch(*(np.zeros(shape, dt) for shape, dt in (
+            ((n, 52), np.float32), ((n, 30), np.float32),
+            ((n, 4), np.int32), (n, np.float32), ((n, 52), np.float32),
+            (n, np.float32))))
+        for _ in range(4):
+            state = buf.rng.bit_generator.state
+            _, idx = buf.sample(256)
+            u_rng = np.random.default_rng()
+            u_rng.bit_generator.state = state
+            us = (np.arange(256) + u_rng.random(256)) * (host.total() / 256)
+            want_idx = np.minimum([host.sample(float(u)) for u in us],
+                                  buf.size - 1)
+            if not np.array_equal(idx.cpu().numpy(), want_idx):
+                fail(f"device PER round {rnd}: sampled indices differ from "
+                     "the host SumTree descent")
+            td = np.abs(nrng.normal(size=256)).astype(np.float32) * 3
+            buf.update_priorities(idx, torch.as_tensor(td, device=dev))
+            host.set_many(idx.cpu().numpy(), (np.abs(td) + replay.EPS_P)
+                          ** replay.ALPHA_PER)
+        if not np.array_equal(buf.tree.cpu().numpy(), host.tree):
+            fail(f"device PER round {rnd}: tree differs from the host's")
+    log("parity device PER: 6 rounds of 448 inserts + 4 x 256 refreshes, "
+        "sampled indices and float64 tree == host SumTree")
+    # fused_mlp: fp32 at rtol 1e-4 / atol 1e-5, bf16 input at 3e-2
+    mlp_ws = {}
+    for d_out in (3, 52):
+        mlp_ws[d_out] = [torch.randn(shape, generator=gen, device=dev) * 0.1
+                         for shape in ((82, 128), (128,), (128, 64), (64,),
+                                       (64, d_out), (d_out,))]
+    for b, d_out in ((448, 3), (4096, 52), (33, 3), (33, 52)):
+        for dtype, rtol, atol in ((torch.float32, RTOL, ATOL),
+                                  (torch.bfloat16, 3e-2, 3e-2)):
+            x = torch.randn((b, 82), generator=gen, device=dev).to(dtype)
+            with torch.no_grad():
+                got = policy_mlp.fused_mlp_cuda(x, *mlp_ws[d_out])
+                torch.cuda.synchronize()
+                want = policy_mlp.fused_mlp_plain(x, *mlp_ws[d_out])
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                errs["fused_mlp"] = max(errs["fused_mlp"], err)
+            log(f"parity fused_mlp [{b},82]->{d_out} {str(dtype)[6:]}: max "
+                f"abs err {err:.3e}")
+            if got.dtype != dtype or not torch.allclose(
+                    got.float(), want.float(), rtol=rtol, atol=atol):
+                fail(f"fused_mlp [{b},82]->{d_out} {dtype} disagrees with "
+                     f"the plain version (max abs err {err:.3e})")
     # the batched env step on the card against the same step on the CPU
     wl = extract(get_config("llama3.1-8b"), seq_len=2048, batch=3)
     env_gpu = VecDSEEnv(wl, NODE, batch=N_ENVS, seed=SEED, device=dev)
@@ -255,7 +396,7 @@ def main() -> None:
         if not ok:
             fail(f"env step {step} on the card disagrees with the CPU")
     log("parity env step: card == CPU over 5 steps (rtol 1e-5, atol 1e-6)")
-    # MPC rollouts (plain ops) on the card against the CPU, same noise
+    # MPC rollouts (actor_moe + fused_mlp) on the card against the CPU
     nets_cpu = [sac.create(SEED, "cpu").params.actor,
                 wm.create(SEED + 1, "cpu").params,
                 sur.Surrogate.create(82, seed=SEED + 2).params]
@@ -274,10 +415,11 @@ def main() -> None:
     timings = {}
     nbytes = lambda tree: sum(t.numel() * 4 for t in tree_leaves(tree))
 
-    def timed(key, shape, kernel, plain, work):
+    def timed(key, shape, kernel, plain, work, plain_in_graph=True):
         with torch.no_grad():
-            ms, plain_ms = device_ms(kernel), device_ms(plain)
-            call, plain_call = call_ms(kernel), call_ms(plain)
+            ms, call, plain_call = device_ms(kernel), call_ms(kernel), \
+                call_ms(plain)
+            plain_ms = device_ms(plain) if plain_in_graph else plain_call
         bnd, by = bound_ms(*work)
         timings[key] = (ms, plain_ms, bnd, by, call)
         log(f"time {key[0]} {shape}: ms {ms:.5f} plain_ms {plain_ms:.5f} "
@@ -298,6 +440,25 @@ def main() -> None:
           lambda: screen_score.screen_scores_cuda(sur_params, s, cand, w),
           lambda: screen_score.screen_scores_plain(sur_params, s, cand, w),
           screen_work(b, k, nbytes(sur_params)))
+
+    tree = torch.as_tensor(np.random.default_rng(1).random(2 * SUMTREE_CAP),
+                           device=dev)
+    for n in (64, 256, 448):
+        idx_np = np.random.default_rng(n).integers(0, SUMTREE_CAP, n)
+        idx = torch.as_tensor(idx_np, device=dev)
+        vals = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        # the plain version synchronises (torch.unique, a host loop over the
+        # bands), so it cannot be captured: its time is the eager one
+        timed(("sumtree", n), f"N={n} cap={SUMTREE_CAP}",
+              lambda: sumtree.sumtree_set_many_cuda(tree, idx, vals),
+              lambda: sumtree.sumtree_set_many_plain(tree, idx, vals),
+              sumtree_work(idx_np, SUMTREE_CAP, False), plain_in_graph=False)
+    for b, d_out in ((448, 3), (4096, 52), (28672, 52)):
+        x = torch.randn((b, 82), generator=gen, device=dev)
+        timed(("fused_mlp", b), f"[{b},82]->{d_out}",
+              lambda: policy_mlp.fused_mlp_cuda(x, *mlp_ws[d_out]),
+              lambda: policy_mlp.fused_mlp_plain(x, *mlp_ws[d_out]),
+              mlp_work(b, d_out, 4))
 
     # ---- 5. the main path -------------------------------------------------
     results = []
@@ -363,51 +524,201 @@ def main() -> None:
     # learning on from the 5th dispatch and the gate open from the 6th
     from torch.profiler import ProfilerActivity, profile
     n_disp = 12
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.time()
-        r = run_search(wl, NODE, search=SearchConfig(
-            episodes=n_disp * N_ENVS, seed=SEED, gate_threshold=1e9),
-            n_envs=N_ENVS, device="cuda")
-        torch.cuda.synchronize()
-        wall_p = time.time() - t
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events only (kernels, copies): the host ops that launched
-    # them carry the same time again
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_time(e) > 0]
-    busy_ms = sum(dev_time(e) for e in events) / 1e3
-    log(f"profile: {n_disp} dispatches, wall {1e3 * wall_p:.3f} ms, loop "
-        f"{1e3 * sum(r.dispatch_s):.3f} ms, device busy {busy_ms:.3f} ms, "
-        f"idle share {1 - busy_ms / (1e3 * wall_p):.4f}, "
-        f"{sum(e.count for e in events)} device ops")
-    for e in sorted(events, key=dev_time, reverse=True)[:12]:
-        log(f"profile:   {dev_time(e) / 1e3:10.3f} ms  x{e.count:<6d} "
-            f"{e.key[:90]}")
-    host = [e for e in prof.key_averages()
-            if not str(e.device_type).endswith("CUDA")]
-    log(f"profile: host ops by self CPU time (of "
-        f"{sum(e.self_cpu_time_total for e in host) / 1e3:.3f} ms):")
-    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:10]:
-        log(f"profile:   {e.self_cpu_time_total / 1e3:10.3f} ms  "
-            f"x{e.count:<6d} {e.key[:90]}")
 
-    # ---- 6. results -------------------------------------------------------
+    def profiled(label, search):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            r = search()
+            torch.cuda.synchronize()
+            wall_p = time.time() - t
+        dev_time = lambda e: getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0.0))
+        # device-side events only (kernels, copies): the host ops that
+        # launched them carry the same time again
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and dev_time(e) > 0]
+        busy_ms = sum(dev_time(e) for e in events) / 1e3
+        log(f"profile {label}: {n_disp} dispatches, wall "
+            f"{1e3 * wall_p:.3f} ms, loop {1e3 * sum(r.dispatch_s):.3f} ms, "
+            f"median dispatch {1e3 * float(np.median(r.dispatch_s)):.3f} ms, "
+            f"device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / (1e3 * wall_p):.4f}, "
+            f"{sum(e.count for e in events)} device ops")
+        for e in sorted(events, key=dev_time, reverse=True)[:12]:
+            log(f"profile {label}:   {dev_time(e) / 1e3:10.3f} ms  "
+                f"x{e.count:<6d} {e.key[:90]}")
+        host = [e for e in prof.key_averages()
+                if not str(e.device_type).endswith("CUDA")]
+        log(f"profile {label}: host ops by self CPU time (of "
+            f"{sum(e.self_cpu_time_total for e in host) / 1e3:.3f} ms):")
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:10]:
+            log(f"profile {label}:   {e.self_cpu_time_total / 1e3:10.3f} ms"
+                f"  x{e.count:<6d} {e.key[:90]}")
+
+    profiled("B=64", lambda: run_search(wl, NODE, search=SearchConfig(
+        episodes=n_disp * N_ENVS, seed=SEED, gate_threshold=1e9),
+        n_envs=N_ENVS, device="cuda"))
+
+    # ---- 6. the campaign path ---------------------------------------------
+    # the paper's grid through the port's CLI; run_batch is wrapped to keep
+    # each batch's SearchResults (dispatch times, MPC count, best designs)
+    import shutil
+    shutil.rmtree(CAMPAIGN_ROOT, ignore_errors=True)
+    os.makedirs(CAMPAIGN_ROOT)
+    batch_results = {}
+    real_run_batch = runner.run_batch
+
+    def recording_run_batch(store, batch, workload, spec, device="cuda"):
+        t = time.time()
+        res = real_run_batch(store, batch, workload, spec, device=device)
+        torch.cuda.synchronize()
+        batch_results[batch.batch_id] = (batch, time.time() - t, res)
+        return res
+
+    grid_path = os.path.join(CAMPAIGN_ROOT, "paper_grid.json")
+    with open(grid_path, "w") as f:
+        json.dump(GRID, f)
+    runner.run_batch = recording_run_batch
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    try:
+        dse.main(["--campaign", grid_path, "--campaign-root", CAMPAIGN_ROOT,
+                  "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        runner.run_batch = real_run_batch
+    camp_wall, camp_counts = time.time() - t, ops.launch_counts()
+    store = CampaignStore.open(os.path.join(CAMPAIGN_ROOT, GRID["name"]))
+    if not store.all_done() or len(store.summaries()) != 28 \
+            or len(batch_results) != 4:
+        fail(f"campaign: {len(store.summaries())} of 28 cells done in "
+             f"{len(batch_results)} batches")
+    log(f"campaign: 28 cells in 4 batches, wall {camp_wall:.3f} s; "
+        f"launches {json.dumps(camp_counts)}")
+    for name in ("sumtree", "fused_mlp"):
+        if camp_counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the campaign path")
+    camp_disp = []
+    for batch_id, (batch, wall_b, res) in sorted(batch_results.items()):
+        disp = np.asarray(res[0].dispatch_s)
+        camp_disp.extend(disp.tolist())
+        log(f"campaign {batch_id}: wall {wall_b:.3f} s, {len(disp)} "
+            f"dispatches of {len(batch.node_nms) * GRID['lanes']} envs, "
+            f"median dispatch {1e3 * float(np.median(disp)):.3f} ms, first "
+            f"{1e3 * float(disp[0]):.3f} ms, MPC dispatches "
+            f"{res[0].mpc_dispatches}")
+        hp = batch.mode == "high_perf"
+        wl_b = extract(get_config(batch.arch), seq_len=GRID["seq_len"],
+                       batch=GRID["batch"])
+        for cell, r in zip(batch.cells, res):
+            summ = store.load_summary(cell.cell_id)
+            log(f"campaign   {cell.cell_id}: ppa_score "
+                f"{summ['ppa_score']} frontier {summ['frontier']} gate "
+                f"open at {summ['gate_open_episode']} screened "
+                f"{summ['screened']} evaluated {summ['evaluated']}")
+            if r.best_cfg is None:
+                continue
+            if summ["ppa_score"] != float(r.best_metrics[
+                    an.M_IDX["ppa_score"]]):
+                fail(f"{cell.cell_id}: stored summary disagrees with the "
+                     "search result")
+            with torch.no_grad():
+                cpu_m = an.evaluate(
+                    cs.project(torch.as_tensor(
+                        np.asarray(r.best_cfg, np.float32))),
+                    torch.as_tensor(np.asarray(wl_b.features, np.float32)),
+                    torch.as_tensor(an.node_vector(
+                        node_params(cell.node_nm, low_power=not hp),
+                        high_perf=hp))).numpy()
+            if not np.allclose(r.best_metrics[keep], cpu_m[keep], rtol=1e-5,
+                               atol=1e-6) or cpu_m[an.M_IDX["feasible"]] != 1:
+                fail(f"{cell.cell_id}: the best design's card metrics "
+                     "disagree with the plain CPU evaluator")
+    n_best = sum(r.best_cfg is not None for _, _, res in
+                 batch_results.values() for r in res)
+    log(f"campaign check: {n_best} of 28 cells found a feasible design; "
+        "each re-evaluated on the CPU agrees (rtol 1e-5) and is feasible; "
+        f"median dispatch over the grid {1e3 * float(np.median(camp_disp)):.3f}"
+        f" ms, MPC dispatches "
+        f"{sum(res[0].mpc_dispatches for _, _, res in batch_results.values())}"
+        f" of {len(camp_disp)}")
+    first = min(batch_results.values(), key=lambda v: v[0].index)[0]
+    profiled("B=448", lambda: run_search_cells(
+        extract(get_config(first.arch), seq_len=GRID["seq_len"],
+                batch=GRID["batch"]), list(first.node_nms),
+        high_perf=first.mode == "high_perf", search=SearchConfig(
+            episodes=n_disp * GRID["lanes"], seed=SEED),
+        lanes_per_cell=GRID["lanes"], device="cuda")[0])
+
+    # ---- 7. kill/resume on the card --------------------------------------
+    kill_path = os.path.join(CAMPAIGN_ROOT, "kill_grid.json")
+    with open(kill_path, "w") as f:
+        json.dump(KILL_GRID, f)
+    kill_roots = [os.path.join(CAMPAIGN_ROOT, part) for part in ("a", "b")]
+    dse.main(["--campaign", kill_path, "--campaign-root", kill_roots[0],
+              "--device", "cuda"])
+    real_save = search_mod._save_search_ckpt
+    saves = []
+
+    def killing_save(*args, **kw):
+        out = real_save(*args, **kw)
+        saves.append(args[1])
+        if len(saves) == 2:
+            raise KeyboardInterrupt("simulated kill after checkpoint 2")
+        return out
+
+    search_mod._save_search_ckpt = killing_save
+    try:
+        dse.main(["--campaign", kill_path, "--campaign-root", kill_roots[1],
+                  "--device", "cuda"])
+        fail("the killed campaign ran to its end")
+    except KeyboardInterrupt:
+        log(f"kill/resume: killed after checkpoints at dispatches {saves}")
+    finally:
+        search_mod._save_search_ckpt = real_save
+    dse.main(["--resume", os.path.join(kill_roots[1], KILL_GRID["name"]),
+              "--device", "cuda"])
+    a, b = (CampaignStore.open(os.path.join(r, KILL_GRID["name"]))
+            for r in kill_roots)
+    if not (a.all_done() and b.all_done()):
+        fail("kill/resume: a run did not finish")
+    for cid in a.manifest["cells"]:
+        sa, sb = ({k: v for k, v in st.load_summary(cid).items()
+                   if k != "wall_s"} for st in (a, b))
+        fa, fb = (st.load_archive(cid).frontier() for st in (a, b))
+        if sa != sb or fa.keys() != fb.keys() or not all(
+                np.array_equal(np.sort(fa[k]), np.sort(fb[k])) for k in fa):
+            fail(f"kill/resume: {cid} differs from the uninterrupted run")
+    log(f"kill/resume: resumed summaries (but wall_s) and frontiers == the "
+        f"uninterrupted run's for {sorted(a.manifest['cells'])}")
+
+    # ---- 8. results -------------------------------------------------------
+    # actor_moe and screen_score at the single search's shapes with its
+    # launch counts; sumtree and fused_mlp at the campaign batch's (B = 448)
+    # with the campaign's counts
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
-    for name, route_src, replaces, shape in (
-            ("actor_moe", src + "actor_moe.cu",
-             "src/repro/kernels/actor_moe.py:75", "B=64"),
-            ("screen_score", src + "screen_score.cu",
-             "src/repro/kernels/screen_score.py:66", "B=64,K=4")):
-        ms, plain, bnd, by, call = timings[(name, 64)]
+    for name, replaces, key, shape, path_counts in (
+            ("actor_moe", "src/repro/kernels/actor_moe.py:75", 64, "B=64",
+             counts),
+            ("screen_score", "src/repro/kernels/screen_score.py:66", 64,
+             "B=64,K=4", counts),
+            ("sumtree", "src/repro/kernels/sumtree.py:63", 448,
+             f"N=448,cap={SUMTREE_CAP}", camp_counts),
+            ("fused_mlp", "src/repro/kernels/policy_mlp.py:60", 448,
+             "[448,82]->3", camp_counts)):
+        ms, plain, bnd, by, call = timings[(name, key)]
+        source = src + ("policy_mlp.cu" if name == "fused_mlp"
+                        else name + ".cu")
         kernels.append(dict(
-            name=name, route="cuda", source=route_src, replaces=replaces,
-            shape=shape, launches=counts[name], max_abs_err=errs[name],
+            name=name, route="cuda", source=source, replaces=replaces,
+            shape=shape, launches=path_counts[name], max_abs_err=errs[name],
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
             library_ms=None, call_ms=call))
+    print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,268 @@
+"""Campaign planner: grid spec -> cells -> mixed-node cell batches (port of
+``repro.campaign.planner``).
+
+A campaign cell is one (workload, process node, optimization mode) search.
+Cells sharing (workload, mode) are packed into mixed-node batches: node
+constants enter the ``VecDSEEnv`` step as per-env vectors, so every cell in
+a batch shares one env step and one SAC policy / PER buffer (see
+``repro_torch.core.search.run_search_cells``).
+
+The spec keeps every field of the reference's, so either package reads the
+other's manifests.  Validation runs against the port's ``ARCH_IDS``, and a
+spec that asks for what is not ported yet (``transfer_from``, ``devices``,
+``hosts``, ``slo``, ``priorities``, or dtypes/phases other than the
+default scenario) is refused with an error naming it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.configs.base import ARCH_IDS
+from repro_torch.ppa.nodes import NODES
+from repro_torch.ppa.surrogate import TAU_SUR_DEFAULT
+from repro_torch.workload.extract import DTYPES, PHASES
+
+MODES = ("high_perf", "low_power")
+# default scenario point: ids/keys carry NO suffix here, so campaign
+# directories, checkpoints and fingerprints match the reference's
+DEFAULT_DTYPE = "native"
+DEFAULT_PHASE = "decode"
+
+
+def scenario_suffix(dtype: str, phase: str) -> str:
+    """``"__{dtype}-{phase}"`` for non-default scenarios, ``""`` at the
+    default."""
+    if dtype == DEFAULT_DTYPE and phase == DEFAULT_PHASE:
+        return ""
+    return f"__{dtype}-{phase}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """One (workload, node, mode[, dtype, phase]) point of the grid."""
+    arch: str
+    node_nm: int
+    mode: str                    # 'high_perf' | 'low_power'
+    dtype: str = DEFAULT_DTYPE
+    phase: str = DEFAULT_PHASE
+
+    @property
+    def cell_id(self) -> str:
+        return (f"{self.arch}__{self.node_nm}nm__{self.mode}"
+                f"{scenario_suffix(self.dtype, self.phase)}")
+
+    @property
+    def high_perf(self) -> bool:
+        return self.mode == "high_perf"
+
+
+@dataclasses.dataclass(frozen=True)
+class CellBatch:
+    """Cells that run as one mixed-node ``run_search_cells`` invocation.
+    All cells share (arch, mode, dtype, phase); ``batch_id`` keys
+    checkpoints."""
+    index: int
+    arch: str
+    mode: str
+    node_nms: tuple
+    dtype: str = DEFAULT_DTYPE
+    phase: str = DEFAULT_PHASE
+
+    @property
+    def key(self) -> str:
+        """Index-free content key (arch, mode, nodes, scenario)."""
+        nodes = "-".join(str(n) for n in self.node_nms)
+        return (f"{self.arch}__{self.mode}__{nodes}nm"
+                f"{scenario_suffix(self.dtype, self.phase)}")
+
+    @property
+    def batch_id(self) -> str:
+        return f"b{self.index:03d}__{self.key}"
+
+    @property
+    def cells(self) -> List[Cell]:
+        return [Cell(self.arch, n, self.mode, self.dtype, self.phase)
+                for n in self.node_nms]
+
+
+# spec fields whose non-default values need a part of the system that is
+# not ported yet, and the part each one needs
+_NOT_PORTED = {
+    "hosts": "fleets (repro.campaign.distrib, launch/fleet)",
+    "devices": "sharding over several cards",
+    "transfer_from": "cross-campaign transfer (campaign/transfer)",
+    "priorities": "cost-model batch priorities (campaign/transfer)",
+    "slo": "SLO-aware scenario selection",
+}
+
+
+@dataclasses.dataclass
+class CampaignSpec:
+    """Grid + budget of one campaign (the ``--campaign grid.json`` payload).
+
+    ``episodes`` is the per-cell env-step budget; ``lanes`` the parallel
+    environments per cell; ``max_envs`` caps the total batch B =
+    n_cells_in_batch * lanes of one mixed-node dispatch.
+    """
+    name: str
+    workloads: List[str]
+    nodes: List[int] = dataclasses.field(default_factory=lambda: list(NODES))
+    modes: List[str] = dataclasses.field(default_factory=lambda: list(MODES))
+    episodes: int = 512
+    lanes: int = 8
+    max_envs: int = 64
+    seed: int = 0
+    seq_len: int = 2048
+    batch: int = 3               # decode batch fed to workload extraction
+    checkpoint_every: int = 8    # dispatches between search checkpoints
+    surrogate_gate: bool = True
+    screen_k: int = 4
+    gate_threshold: float = TAU_SUR_DEFAULT
+    hosts: Optional[List[str]] = None
+    devices: Optional[int] = None
+    transfer_from: Optional[List[str]] = None
+    priorities: Optional[Dict[str, float]] = None
+    dtypes: List[str] = dataclasses.field(
+        default_factory=lambda: [DEFAULT_DTYPE])
+    phases: List[str] = dataclasses.field(
+        default_factory=lambda: [DEFAULT_PHASE])
+    slo: Optional[Dict] = None
+
+    def __post_init__(self) -> None:
+        unknown = [w for w in self.workloads if w not in ARCH_IDS]
+        if unknown:
+            raise ValueError(f"unknown workloads {unknown}; "
+                             f"ported zoo: {sorted(ARCH_IDS)}")
+        bad = [n for n in self.nodes if n not in NODES]
+        if bad:
+            raise ValueError(f"unknown process nodes {bad}; known: {NODES}")
+        bad_modes = [m for m in self.modes if m not in MODES]
+        if bad_modes:
+            raise ValueError(f"unknown modes {bad_modes}; known: {MODES}")
+        if self.lanes < 1 or self.episodes < 1:
+            raise ValueError("episodes and lanes must be >= 1")
+        if self.max_envs < self.lanes:
+            raise ValueError(f"max_envs ({self.max_envs}) must be >= lanes "
+                             f"({self.lanes})")
+        if self.screen_k < 1:
+            raise ValueError(f"screen_k must be >= 1 (got {self.screen_k})")
+        if self.gate_threshold < 0:
+            raise ValueError(f"gate_threshold must be >= 0 "
+                             f"(got {self.gate_threshold})")
+        bad_dt = [d for d in self.dtypes if d not in DTYPES]
+        if bad_dt or not self.dtypes:
+            raise ValueError(f"unknown dtypes {bad_dt or self.dtypes}; "
+                             f"known: {list(DTYPES)}")
+        bad_ph = [p for p in self.phases if p not in PHASES]
+        if bad_ph or not self.phases:
+            raise ValueError(f"unknown phases {bad_ph or self.phases}; "
+                             f"known: {list(PHASES)}")
+        for name, part in _NOT_PORTED.items():
+            if getattr(self, name) is not None:
+                raise ValueError(f"{name}: {part} is not ported to "
+                                 "repro_torch yet")
+        if self.dtypes != [DEFAULT_DTYPE] or self.phases != [DEFAULT_PHASE]:
+            raise ValueError(
+                f"dtypes {self.dtypes} / phases {self.phases}: scenario "
+                "grids are not ported to repro_torch yet (only "
+                f"[{DEFAULT_DTYPE!r}] / [{DEFAULT_PHASE!r}])")
+
+    @property
+    def n_cells(self) -> int:
+        return (len(self.workloads) * len(self.nodes) * len(self.modes)
+                * len(self.dtypes) * len(self.phases))
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "CampaignSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        extra = sorted(set(d) - known)
+        if extra:
+            import difflib
+            hints = []
+            for k in extra:
+                close = difflib.get_close_matches(k, known, n=1)
+                hints.append(f"{k!r}" + (f" (did you mean {close[0]!r}?)"
+                                         if close else ""))
+            raise ValueError(
+                f"unknown campaign spec keys {', '.join(hints)}; "
+                f"known keys: {sorted(known)}")
+        missing = [f.name for f in dataclasses.fields(cls)
+                   if f.default is dataclasses.MISSING
+                   and f.default_factory is dataclasses.MISSING
+                   and f.name not in d]
+        if missing:
+            raise ValueError(f"campaign spec missing required "
+                             f"key{'s' if len(missing) > 1 else ''} "
+                             f"{missing}")
+        return cls(**d)
+
+    @classmethod
+    def from_file(cls, path: str) -> "CampaignSpec":
+        """Load a grid spec from .json or .yaml/.yml."""
+        with open(path) as f:
+            text = f.read()
+        if path.endswith((".yaml", ".yml")):
+            try:
+                import yaml
+            except ImportError as e:   # pragma: no cover
+                raise RuntimeError(
+                    f"{path}: pyyaml not installed; use a .json grid") from e
+            try:
+                payload = yaml.safe_load(text)
+            except yaml.YAMLError as e:
+                raise ValueError(f"invalid YAML: {e}") from e
+            return cls.from_dict(payload)
+        return cls.from_dict(json.loads(text))
+
+
+def cells(spec: CampaignSpec) -> List[Cell]:
+    """Expand the grid: workloads (outer) x dtypes x phases x modes x
+    nodes (inner)."""
+    return [Cell(w, n, m, dt, ph)
+            for w in spec.workloads for dt in spec.dtypes
+            for ph in spec.phases for m in spec.modes for n in spec.nodes]
+
+
+def plan(spec: CampaignSpec) -> List[CellBatch]:
+    """Pack the grid into mixed-node batches of <= max_envs environments.
+
+    Grouping key is (workload, dtype, phase, mode) — those fix the env's
+    workload vector and reward weights — and the node list is chunked so
+    that ``len(chunk) * lanes <= max_envs``.  Batch ``index`` (and with it
+    the per-batch seed ``spec.seed + 1000 * index``) follows spec order.
+    """
+    per_batch = max(1, spec.max_envs // spec.lanes)
+    out: List[CellBatch] = []
+    for w in spec.workloads:
+        for dt in spec.dtypes:
+            for ph in spec.phases:
+                for m in spec.modes:
+                    nodes: Sequence[int] = spec.nodes
+                    for i in range(0, len(nodes), per_batch):
+                        out.append(CellBatch(
+                            index=len(out), arch=w, mode=m,
+                            node_nms=tuple(nodes[i:i + per_batch]),
+                            dtype=dt, phase=ph))
+    return out
+
+
+_PLAN_CACHE: Dict[str, List[CellBatch]] = {}
+_PLAN_CACHE_MAX = 32
+
+
+def plan_cached(spec: CampaignSpec) -> List[CellBatch]:
+    """``plan`` memoized per spec (keyed on its canonical dict).  The
+    batches are frozen dataclasses, so one shared list per spec is safe;
+    callers must not mutate the returned list."""
+    key = json.dumps(spec.to_dict(), sort_keys=True)
+    batches = _PLAN_CACHE.get(key)
+    if batches is None:
+        while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
+            _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+        batches = _PLAN_CACHE[key] = plan(spec)
+    return batches

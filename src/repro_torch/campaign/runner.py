@@ -1,0 +1,181 @@
+"""Campaign runner: executes planned cell batches with resumable progress
+(port of ``repro.campaign.runner``; telemetry is not ported yet).
+
+Each :class:`~repro_torch.campaign.planner.CellBatch` is one mixed-node
+``run_search_cells`` invocation (shared env step + shared SAC/PER learner
+across the batch's process nodes) on the campaign's device.  Progress is
+durable at two granularities:
+
+* **cell level** — a batch's cells are recorded ``done`` in the store
+  manifest the moment the batch finishes; a resumed campaign never re-runs
+  a completed cell.
+* **chunk level** — within a running batch the full search state is
+  checkpointed every ``spec.checkpoint_every`` dispatches under
+  ``<run-dir>/ckpt/<batch_id>/``; a killed campaign resumes the batch from
+  the last completed chunk, bit-for-bit.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.campaign.planner import (DEFAULT_DTYPE, DEFAULT_PHASE,
+                                          CampaignSpec, Cell, CellBatch, plan,
+                                          plan_cached)
+from repro_torch.campaign.report import write_reports
+from repro_torch.campaign.store import CampaignStore
+from repro_torch.configs import get_config
+from repro_torch.core.search import (SearchConfig, SearchResult,
+                                     run_search_cells)
+from repro_torch.ppa import config_space as cs
+from repro_torch.ppa.analytic import M_IDX
+from repro_torch.workload.extract import extract
+from repro_torch.workload.features import Workload
+
+
+def cell_summary(cell: Cell, res: SearchResult) -> Dict:
+    """Best-PPA row persisted per completed cell (report source of truth)."""
+    row = dict(cell_id=cell.cell_id, arch=cell.arch, node_nm=cell.node_nm,
+               mode=cell.mode, method=res.method,
+               episodes=res.episodes_run, feasible=res.feasible_count,
+               unique=res.unique_configs, frontier=len(res.archive),
+               wall_s=round(res.wall_s, 2),
+               gate_open_episode=res.gate_open_episode,
+               screened=res.screened, evaluated=res.evaluated)
+    if res.best_cfg is not None:
+        c = lambda n: float(res.best_cfg[cs.IDX[n]])
+        row.update(mesh=f"{int(round(c('mesh_w')))}x{int(round(c('mesh_h')))}",
+                   fetch=int(round(c("fetch"))), vlen=int(round(c("vlen"))),
+                   wmem_kb=int(round(c("wmem_kb"))),
+                   dmem_kb=int(round(c("dmem_kb"))),
+                   imem_kb=int(round(c("imem_kb"))),
+                   freq_frac=round(c("freq_frac"), 4))
+    if res.best_metrics is not None:
+        m = lambda n: float(res.best_metrics[M_IDX[n]])
+        row.update(ppa_score=m("ppa_score"), tok_s=m("tok_s"),
+                   power_mw=m("power_mw"), perf_gops=m("perf_gops"),
+                   area_mm2=m("area_mm2"), freq_mhz=m("f_hz") / 1e6)
+    else:
+        # no feasible design found: None (not inf) keeps every campaign
+        # artifact strict JSON
+        row.update(ppa_score=None)
+    if cell.dtype != DEFAULT_DTYPE or cell.phase != DEFAULT_PHASE:
+        row.update(dtype=cell.dtype, phase=cell.phase)
+    return row
+
+
+def run_batch(store: CampaignStore, batch: CellBatch, workload: Workload,
+              spec: CampaignSpec, device="cuda") -> List[SearchResult]:
+    """Run one mixed-node batch to completion (resuming any checkpoint);
+    the batch's final SAC/surrogate weights are snapshotted under
+    ``<root>/model/weights/<batch_id>/``."""
+    sc = SearchConfig(episodes=spec.episodes,
+                      seed=spec.seed + 1000 * batch.index,
+                      surrogate_gate=spec.surrogate_gate,
+                      screen_k=spec.screen_k,
+                      gate_threshold=spec.gate_threshold)
+    return run_search_cells(
+        workload, list(batch.node_nms), high_perf=batch.mode == "high_perf",
+        search=sc, lanes_per_cell=spec.lanes,
+        checkpoint_dir=store.ckpt_dir(batch.batch_id),
+        checkpoint_every=spec.checkpoint_every, resume=True,
+        save_weights_to=store.weights_dir(batch.batch_id), device=device)
+
+
+def _resumed_spec(store: CampaignStore, root: str,
+                  spec: Optional[CampaignSpec]) -> CampaignSpec:
+    if spec is not None and spec.to_dict() != store.manifest["spec"]:
+        raise ValueError(
+            f"--resume spec differs from the manifest in {root}; "
+            "resume without a grid file or start a new campaign")
+    return store.spec
+
+
+def execute_batch(store: CampaignStore, batch: CellBatch,
+                  spec: CampaignSpec,
+                  progress: Callable[[str], None] = lambda m: None,
+                  device="cuda") -> int:
+    """Run one batch to completion against ``store``: resume any
+    checkpoint, persist every cell, clear the batch checkpoint.  Returns
+    the number of cells completed (0 if none were pending)."""
+    pending = store.pending_cells(batch)
+    if not pending:
+        # a kill between the batch's last complete_cell and clear_ckpt
+        # would otherwise leave its checkpoints on disk forever
+        store.clear_ckpt(batch.batch_id)
+        return 0
+    wl = extract(get_config(batch.arch), seq_len=spec.seq_len,
+                 batch=spec.batch, phase=batch.phase, dtype=batch.dtype)
+    progress(f"[campaign] {batch.batch_id}: {len(batch.node_nms)} cells "
+             f"x {spec.lanes} lanes, {spec.episodes} ep/cell")
+    done_before = {c.cell_id for c in batch.cells if c not in pending}
+    store.mark_running(batch)
+    results = run_batch(store, batch, wl, spec, device=device)
+    completed = 0
+    for cell, res in zip(batch.cells, results):
+        if cell.cell_id in done_before:
+            # a re-run of a partially-completed batch reproduces the done
+            # cell bit-for-bit; skipping the re-append avoids duplicates
+            continue
+        summary = cell_summary(cell, res)
+        store.complete_cell(cell, summary, res.archive.entries)
+        completed += 1
+        score = summary["ppa_score"]
+        progress(f"[campaign]   {cell.cell_id}: score="
+                 f"{'-' if score is None else format(score, '.4f')} "
+                 f"frontier={summary['frontier']}")
+    store.clear_ckpt(batch.batch_id)
+    return completed
+
+
+def run_campaign(root: str, spec: Optional[CampaignSpec] = None, *,
+                 resume: bool = False,
+                 progress: Callable[[str], None] = print,
+                 device="cuda") -> CampaignStore:
+    """Plan + execute + persist + report a full campaign on ``device``.
+
+    ``resume=True`` reopens ``root`` (the spec is read back from the
+    manifest) and continues: completed cells are skipped, an interrupted
+    batch restarts from its last search checkpoint.
+    """
+    if resume:
+        store = CampaignStore.open(root)
+        if store.manifest.get("fleet", {}).get("assignments"):
+            raise ValueError(
+                f"{root} is a fleet campaign with undealt work; fleets are "
+                "not ported to repro_torch yet")
+        spec = _resumed_spec(store, root, spec)
+    else:
+        if spec is None:
+            raise ValueError("a CampaignSpec is required to start a campaign")
+        store = CampaignStore.create(root, spec)
+    t0 = time.time()
+    n_done = 0
+    for batch in plan_cached(spec):
+        n_done += execute_batch(store, batch, spec, progress, device=device)
+    write_reports(store)
+    progress(f"[campaign] {store.manifest['name']}: "
+             f"{n_done} cells run, all_done={store.all_done()}, "
+             f"{time.time() - t0:.1f}s -> {root}")
+    return store
+
+
+def run_cells_sequential(spec: CampaignSpec,
+                         batches: Optional[List[CellBatch]] = None,
+                         device="cuda") -> List[SearchResult]:
+    """Baseline: one single-cell ``run_search_cells`` invocation per
+    (workload, node, mode) at the same per-cell budget and lane count."""
+    out = []
+    for batch in (batches or plan(spec)):
+        wl = extract(get_config(batch.arch), seq_len=spec.seq_len,
+                     batch=spec.batch, phase=batch.phase, dtype=batch.dtype)
+        for i, node in enumerate(batch.node_nms):
+            sc = SearchConfig(episodes=spec.episodes,
+                              seed=spec.seed + 1000 * batch.index + i,
+                              surrogate_gate=spec.surrogate_gate,
+                              screen_k=spec.screen_k,
+                              gate_threshold=spec.gate_threshold)
+            out.extend(run_search_cells(
+                wl, [node], high_perf=batch.mode == "high_perf",
+                search=sc, lanes_per_cell=spec.lanes, device=device))
+    return out

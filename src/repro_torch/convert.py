@@ -1,6 +1,6 @@
 """Carry the reference's parameters into the port.
 
-Two input forms:
+Two input forms (and a search checkpoint's PER state, below):
 
 * nested dicts of numpy arrays, as ``jax.tree_util.tree_map(np.asarray,
   tree)`` gives them for the actor, critics and targets, the world model
@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import sac as sac_mod
 from repro_torch.core import world_model as wm_mod
+from repro_torch.core.replay import PERBuffer
 from repro_torch.optim.adam import AdamState, adam_init
 
 
@@ -94,3 +95,25 @@ def world_model_state(params: Mapping, device="cpu") -> wm_mod.WMState:
                           n_updates=torch.zeros((), dtype=torch.int32,
                                                 device=device),
                           ema_loss=torch.tensor(float("inf"), device=device))
+
+
+def per_buffer_from_flat(flat: Mapping[str, np.ndarray], extra: Mapping,
+                         device="cpu") -> PERBuffer:
+    """A search checkpoint's PER state -> a port (device-resident)
+    ``PERBuffer``: the ``host/per_*`` arrays and the float64
+    ``host/per_tree`` leaves, plus ``buf_pos``, ``buf_size``,
+    ``buf_max_priority``, ``buf_beta`` and the ``buf_rng`` stream from the
+    manifest's ``extra``.  Both packages write these under the same names,
+    so either one's checkpoint carries across."""
+    s = flat["host/per_s"]
+    buf = PERBuffer(s.shape[1], flat["host/per_a_cont"].shape[1],
+                    flat["host/per_a_disc"].shape[1], capacity=s.shape[0],
+                    device=device)
+    for name in PERBuffer.FIELDS:
+        getattr(buf, name).copy_(torch.as_tensor(flat[f"host/per_{name}"]))
+    buf.tree.copy_(torch.as_tensor(flat["host/per_tree"]))
+    buf.pos, buf.size = int(extra["buf_pos"]), int(extra["buf_size"])
+    buf.max_priority = float(extra["buf_max_priority"])
+    buf.beta = float(extra["buf_beta"])
+    buf.rng.bit_generator.state = extra["buf_rng"]
+    return buf

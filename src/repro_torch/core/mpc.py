@@ -5,7 +5,10 @@ K = 64 candidate first actions (policy mean + N(0, 0.3^2) noise, clamped)
 are rolled out H = 5 steps through f_omega with policy-mean actions for
 k >= 1 and scored by the discounted surrogate PPA reward (Eq. 72).  The
 reference vmaps its single-state ``plan`` over the batch; here the batch
-axis is written out.  Plain torch ops, as the reference uses jnp.
+axis is written out.  The rollouts go through the kernels, as the
+reference's kernel docstrings intend: the actor through ``actor_moe``, the
+world-model step and the surrogate reward through ``fused_mlp`` (their
+plain versions for CPU tensors).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import networks as nets
+from repro_torch.kernels import actor_moe
 from repro_torch.ppa import surrogate as sur
 
 K_CANDIDATES = 64
@@ -34,7 +38,8 @@ def plan(actor_params: Dict, wm_params: Dict, sur_params: Dict,
     ``noise``: standard normal [B, k, 30] (scaled by NOISE_STD here), or
     drawn from ``gen`` when None."""
     b = s.shape[0]
-    _, mu0, _, _ = nets.actor_forward(actor_params, s)               # [B, 30]
+    _, mu0, _, _ = nets.actor_forward(actor_params, s,
+                                      actor_moe.actor_forward)       # [B, 30]
     if noise is None:
         noise = torch.randn((b, k, mu0.shape[-1]), generator=gen,
                             device=s.device)
@@ -46,9 +51,9 @@ def plan(actor_params: Dict, wm_params: Dict, sur_params: Dict,
     for _ in range(horizon):
         r = sur.surrogate_reward(sur.predict(
             sur_params, torch.cat([s_k, a_k], dim=-1)))               # Eq. 72
-        s_k = nets.world_model_forward(wm_params, s_k, a_k)           # Eq. 71
+        s_k = nets.world_model_step(wm_params, s_k, a_k)              # Eq. 71
         _, mu_next, _, _ = nets.actor_forward(
-            actor_params, s_k.reshape(b * k, -1))
+            actor_params, s_k.reshape(b * k, -1), actor_moe.actor_forward)
         a_k = mu_next.reshape(b, k, -1)
         rews.append(disc * r)
         disc = disc * GAMMA

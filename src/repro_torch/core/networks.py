@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.actions import N_CONT, N_DISC, N_DISC_OPTIONS
 from repro_torch.core.state import SAC_STATE_DIM
+from repro_torch.kernels import policy_mlp
 from repro_torch.kernels.actor_moe import actor_forward_plain
 
 HIDDEN = 256
@@ -144,3 +145,11 @@ def world_model_forward(params: Dict, s: torch.Tensor,
     h = gelu(x @ params["l1"]["w"] + params["l1"]["b"])
     h = gelu(h @ params["l2"]["w"] + params["l2"]["b"])
     return s + (h @ params["out"]["w"] + params["out"]["b"])
+
+
+def world_model_step(params: Dict, s: torch.Tensor,
+                     a: torch.Tensor) -> torch.Tensor:
+    """:func:`world_model_forward` for inference (the MPC rollouts):
+    ``s + fused_mlp([s; a])`` through the ``fused_mlp`` kernel; no
+    gradient."""
+    return s + policy_mlp.mlp(params, torch.cat([s, a], dim=-1), "out")

@@ -11,9 +11,17 @@ Device randomness (policy, update and MPC noise) comes from two seeded
 screen one that is drawn only while some gate is open, so a run whose
 gates never open is bitwise the ``surrogate_gate=False`` run.
 
-Not ported yet: checkpoint/resume, ``devices``, ``warm_start``,
-``save_weights_to``, ``scenario`` (SLO selection), telemetry, and the
-scalar ``run_sac`` / ``run_random`` / ``run_grid`` baselines.
+The PER buffer lives on the run's device (``core.replay``), its sum-tree
+written through the ``sumtree`` kernel; surrogate calibration and the MPC
+rollouts run through ``fused_mlp``.  Checkpoint/resume and the final
+weights snapshot use the reference's layout and leaf names
+(``checkpoint.manager``); the torch generators' states are saved as
+``device/gen`` and ``device/screen_gen`` in place of the reference's
+``device/key`` and ``device/screen_key``.
+
+Not ported yet: ``devices``, ``warm_start``, ``scenario`` (SLO
+selection), telemetry, and the scalar ``run_sac`` / ``run_random`` /
+``run_grid`` baselines.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.checkpoint import manager as ckpt_mod
 from repro_torch.device import to_numpy as _np
 from repro_torch.core import actions as act
 from repro_torch.core import mpc as mpc_mod
@@ -40,7 +49,7 @@ from repro_torch.core.replay import PERBuffer
 from repro_torch.core.state import SAC_STATE_DIM
 from repro_torch.ppa import config_space as cs
 from repro_torch.ppa import surrogate as sur_mod
-from repro_torch.ppa.analytic import M_IDX, evaluate_vec
+from repro_torch.ppa.analytic import M_DIM, M_IDX, evaluate_vec
 from repro_torch.workload.features import Workload
 
 SCREEN_SEED_OFFSET = 7919   # the reference's dedicated screen-stream seed
@@ -111,16 +120,53 @@ def _cfg_key(cfg: np.ndarray) -> tuple:
     return tuple(np.round(np.asarray(cfg, np.float64), 3).tolist())
 
 
+def _restore_np_rng(state: Dict) -> np.random.Generator:
+    g = np.random.default_rng()
+    g.bit_generator.state = state
+    return g
+
+
+def _save_search_ckpt(ckpt_dir: str, step: int, tree: Dict, extra: Dict,
+                      *, keep: int = 2) -> str:
+    """Checkpoint hook: atomic save of the full search loop state.
+
+    Module-level so the kill/resume tests can wrap it; the campaign runner
+    points ``checkpoint_dir`` at its per-batch directory."""
+    return ckpt_mod.save(tree, ckpt_dir, step, keep=keep, extra=extra)
+
+
 def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
                      high_perf: bool = True,
                      search: Optional[SearchConfig] = None,
                      lanes_per_cell: int = 64,
+                     checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 0,
+                     resume: bool = False,
+                     devices: Optional[int] = None,
+                     warm_start: Optional[Dict] = None,
+                     save_weights_to: Optional[str] = None,
+                     scenario: Optional[Dict] = None,
                      device="cuda") -> List[SearchResult]:
     """Algorithm 1 over a mixed-node cell batch: every entry of
     ``node_nms`` is one search cell with ``lanes_per_cell`` environments,
     all sharing one policy, PER buffer, world model and surrogate.
     ``sc.episodes`` is the per-cell env-step budget.  Returns one
-    :class:`SearchResult` per cell, in ``node_nms`` order."""
+    :class:`SearchResult` per cell, in ``node_nms`` order.
+
+    With ``checkpoint_dir`` set and ``checkpoint_every > 0`` the whole loop
+    state (learner, world model and surrogate with their optimizers, the
+    PER arrays and float64 tree, archives, incumbents, epsilon, gate state,
+    every numpy stream and both torch generators) is checkpointed every
+    ``checkpoint_every`` dispatches; ``resume=True`` restarts from the
+    latest checkpoint and reproduces the uninterrupted run bit-for-bit.
+    ``save_weights_to`` snapshots the final SAC and surrogate parameters
+    there (``keep=1``).  ``devices``, ``warm_start`` and ``scenario`` are
+    not ported yet and raise."""
+    for name, val in (("devices", devices), ("warm_start", warm_start),
+                      ("scenario", scenario)):
+        if val is not None:
+            raise NotImplementedError(
+                f"run_search_cells: {name} is not ported to repro_torch yet")
     sc = search or SearchConfig()
     dev = device_mod.resolve(device)
     n_cells = len(node_nms)
@@ -138,7 +184,8 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     wm_state = wm_mod.create(sc.seed + 1, dev)
     surrogate = sur_mod.Surrogate.create(SAC_STATE_DIM + act.N_CONT,
                                          seed=sc.seed + 2, device=dev)
-    buf = PERBuffer(SAC_STATE_DIM, act.N_CONT, act.N_DISC, seed=sc.seed)
+    buf = PERBuffer(SAC_STATE_DIM, act.N_CONT, act.N_DISC, seed=sc.seed,
+                    device=dev)
     eps_sched = EpsilonSchedule(sc.eps0, sc.eps_min, sc.episodes)
     gate = sur_mod.ScreenGate.create(n_cells, sc.gate_threshold)
     gate_on = bool(sc.surrogate_gate) and sc.screen_k > 1
@@ -160,12 +207,138 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     n_steps = max(1, sc.episodes // lanes)
     reset_every = max(1, sc.reset_period)
     trace_every = max(1, 50 // lanes)
-    t_env = 0
+    start_t = 0
+    t_env = 0            # per-cell env-steps completed
     to_dev = lambda x: torch.as_tensor(x, device=dev)
 
-    s = env.reset()      # (B, 52)
-    t = 0
-    for t in range(n_steps):
+    if resume and checkpoint_dir and ckpt_mod.latest_step(checkpoint_dir):
+        flat, manifest = ckpt_mod.restore_flat(checkpoint_dir)
+        ex = manifest["extra"]
+        if (list(ex["node_nms"]) != [int(n) for n in node_nms]
+                or ex["lanes"] != lanes or ex["episodes"] != sc.episodes
+                or bool(ex["high_perf"]) != bool(high_perf)
+                or int(ex["seed"]) != sc.seed):
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} was written for cells "
+                f"{ex['node_nms']} x{ex['lanes']} lanes @{ex['episodes']} ep "
+                f"(high_perf={ex['high_perf']}, seed={ex['seed']}); got "
+                f"{list(node_nms)} x{lanes} @{sc.episodes} "
+                f"(high_perf={high_perf}, seed={sc.seed})")
+        gc = ex["gate_cfg"]
+        if (bool(gc["surrogate_gate"]) != bool(sc.surrogate_gate)
+                or int(gc["screen_k"]) != sc.screen_k
+                or float(gc["gate_threshold"]) != sc.gate_threshold):
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} was written with gate "
+                f"settings {gc}; got surrogate_gate={sc.surrogate_gate}, "
+                f"screen_k={sc.screen_k}, gate_threshold="
+                f"{sc.gate_threshold} — resuming with different gate "
+                "settings would break bit-exact resume")
+        if "device/gen" not in flat:
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} holds no torch generator "
+                "state (written by the JAX package?); the port resumes "
+                "only its own search checkpoints")
+        unflat = lambda prefix, tmpl: ckpt_mod.unflatten_from(flat, prefix,
+                                                              tmpl)
+        sac_state = unflat("device/sac", sac_state)
+        wm_state = unflat("device/wm", wm_state)
+        surrogate.params = unflat("device/sur_params", surrogate.params)
+        surrogate.opt_state = unflat("device/sur_opt", surrogate.opt_state)
+        surrogate.resid_var = float(ex["sur_resid_var"])
+        surrogate.n_updates = int(ex["sur_n_updates"])
+        gen.set_state(torch.as_tensor(flat["device/gen"]))
+        screen_gen.set_state(torch.as_tensor(flat["device/screen_gen"]))
+        for name in PERBuffer.FIELDS:
+            getattr(buf, name).copy_(to_dev(flat[f"host/per_{name}"]))
+        buf.tree.copy_(to_dev(flat["host/per_tree"]))
+        buf.pos, buf.size = int(ex["buf_pos"]), int(ex["buf_size"])
+        buf.max_priority = float(ex["buf_max_priority"])
+        buf.beta = float(ex["buf_beta"])
+        buf.rng = _restore_np_rng(ex["buf_rng"])
+        rng = _restore_np_rng(ex["rng"])
+        env.rngs = [_restore_np_rng(st) for st in ex["env_rngs"]]
+        env.cfg = to_dev(flat["host/env_cfg"])
+        env.ranges = to_dev(flat["host/env_ranges"])
+        s = flat["host/obs"]
+        for k in range(int(ex["sur_len"])):
+            sur_x.append(flat["host/sur_x"][k])
+            sur_y.append(flat["host/sur_y"][k])
+        archives = [ParetoArchive.from_dict(d) for d in ex["archives"]]
+        traces = [[TracePoint(**tp) for tp in tr] for tr in ex["traces"]]
+        for row, c in zip(flat["host/seen_keys"], flat["host/seen_cell"]):
+            seen[int(c)].add(tuple(row.tolist()))
+        for c in range(n_cells):
+            if ex["best_has"][c]:
+                best[c] = (float(ex["best_score"][c]),
+                           flat["host/best_cfg"][c].copy(),
+                           flat["host/best_metrics"][c].copy())
+        feasible_count = np.asarray(ex["feasible_count"], np.int64)
+        no_improve = int(ex["no_improve"])
+        last_entropy = float(ex["last_entropy"])
+        eps_sched.eps = float(ex["eps"])
+        gate = sur_mod.ScreenGate.from_dict(ex["gate"])
+        screen_rng = _restore_np_rng(ex["screen_rng"])
+        mpc_dispatches = int(ex.get("mpc_dispatches", 0))
+        start_t = int(manifest["step"])
+        t_env = start_t * lanes
+    else:
+        s = env.reset()      # (B, 52)
+
+    def _checkpoint(t_next: int) -> None:
+        seen_keys = [k for c in range(n_cells) for k in seen[c]]
+        seen_cell = [c for c in range(n_cells) for _ in seen[c]]
+        xdim = SAC_STATE_DIM + act.N_CONT
+        tree = dict(
+            device=dict(sac=sac_state, wm=wm_state,
+                        sur_params=surrogate.params,
+                        sur_opt=surrogate.opt_state, gen=gen.get_state(),
+                        screen_gen=screen_gen.get_state()),
+            host=dict(
+                **{f"per_{name}": getattr(buf, name)
+                   for name in PERBuffer.FIELDS},
+                per_tree=buf.tree, env_cfg=env.cfg, env_ranges=env.ranges,
+                obs=np.asarray(s),
+                sur_x=(np.stack(list(sur_x)) if sur_x
+                       else np.zeros((0, b, xdim), np.float32)),
+                sur_y=(np.stack(list(sur_y)) if sur_y
+                       else np.zeros((0, b, 1), np.float32)),
+                seen_keys=(np.asarray(seen_keys, np.float64)
+                           if seen_keys else np.zeros((0, cs.DIM))),
+                seen_cell=np.asarray(seen_cell, np.int64),
+                best_cfg=np.stack([
+                    best[c][1] if best[c][1] is not None
+                    else np.zeros(cs.DIM, np.float32) for c in range(n_cells)]),
+                best_metrics=np.stack([
+                    best[c][2] if best[c][2] is not None
+                    else np.zeros(M_DIM, np.float32)
+                    for c in range(n_cells)]),
+            ))
+        extra = dict(
+            node_nms=[int(n) for n in node_nms], lanes=lanes,
+            episodes=sc.episodes, high_perf=high_perf, seed=sc.seed,
+            eps=eps_sched.eps, rng=rng.bit_generator.state,
+            buf_rng=buf.rng.bit_generator.state,
+            env_rngs=[g.bit_generator.state for g in env.rngs],
+            buf_pos=buf.pos, buf_size=buf.size,
+            buf_max_priority=buf.max_priority, buf_beta=buf.beta,
+            sur_resid_var=surrogate.resid_var,
+            sur_n_updates=surrogate.n_updates, sur_len=len(sur_x),
+            archives=[a.to_dict() for a in archives],
+            traces=[[dataclasses.asdict(tp) for tp in tr] for tr in traces],
+            best_has=[best[c][1] is not None for c in range(n_cells)],
+            best_score=[float(best[c][0]) for c in range(n_cells)],
+            feasible_count=feasible_count.tolist(), no_improve=no_improve,
+            last_entropy=last_entropy, gate=gate.to_dict(),
+            gate_cfg=dict(surrogate_gate=bool(sc.surrogate_gate),
+                          screen_k=sc.screen_k,
+                          gate_threshold=sc.gate_threshold),
+            screen_rng=screen_rng.bit_generator.state,
+            mpc_dispatches=mpc_dispatches)
+        _save_search_ckpt(checkpoint_dir, t_next, tree, extra)
+
+    t = start_t
+    for t in range(start_t, n_steps):
         _dt0 = time.time()
         # ---- action selection: per-element eps-greedy (Alg. 1 l.6) -------
         a_c_rand, a_d_rand = act.random_action_batch(rng, b)
@@ -245,17 +418,15 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
         # ---- learn (Alg. 1 l.12-13) --------------------------------------
         if buf.size >= max(sc.batch_size, min(sc.warmup, sc.episodes // 4)):
             for _ in range(sc.updates_per_dispatch):
-                batch_np, idx = buf.sample(sc.batch_size)
-                batch = sac_mod.Batch(**{k: to_dev(v)
-                                         for k, v in batch_np.items()})
+                batch_d, idx = buf.sample(sc.batch_size)
+                batch = sac_mod.Batch(**batch_d)
                 sac_state, td_abs, met = sac_mod.update(sac_state, batch,
                                                         gen=gen)
-                buf.update_priorities(idx, _np(td_abs))
+                buf.update_priorities(idx, td_abs)
                 last_entropy = float(met["entropy"])
             wmb = buf.recent(sc.wm_batch)
-            wm_state, _ = wm_mod.train_step(
-                wm_state, to_dev(wmb["s"]), to_dev(wmb["a_cont"]),
-                to_dev(wmb["s2"]))
+            wm_state, _ = wm_mod.train_step(wm_state, wmb["s"],
+                                            wmb["a_cont"], wmb["s2"])
             if t % max(1, sc.surrogate_every // lanes) == 0 and len(sur_x):
                 xs = np.concatenate(list(sur_x), axis=0)
                 ys = np.concatenate(list(sur_y), axis=0)
@@ -288,6 +459,21 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
         if (no_improve > sc.early_stop_patience
                 and eps_sched.eps <= sc.eps_min + 1e-6):
             break
+        # checkpoint only live continuations (after the early-stop check:
+        # a resumed run must never execute dispatches the original skipped)
+        if checkpoint_dir and checkpoint_every > 0 \
+                and (t + 1) % checkpoint_every == 0 and t + 1 < n_steps:
+            _checkpoint(t + 1)
+
+    if save_weights_to:
+        # final-weights snapshot for cross-campaign warm-starts; plain
+        # ckpt_mod.save (not the _save_search_ckpt hook) and derived purely
+        # from loop state, so a resumed finish re-writes identical bytes
+        ckpt_mod.save(dict(sac=sac_state, sur_params=surrogate.params),
+                      save_weights_to, max(1, t_env), keep=1,
+                      extra=dict(kind="batch_weights",
+                                 node_nms=[int(n) for n in node_nms],
+                                 seed=sc.seed, high_perf=bool(high_perf)))
 
     # ---- final selection per cell: Pareto-scalarized (paper §3.10) -------
     results = []
@@ -323,11 +509,15 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
 
 def run_search(workload: Workload, node_nm: int, *, high_perf: bool = True,
                search: Optional[SearchConfig] = None, n_envs: int = 64,
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 0, resume: bool = False,
                device="cuda") -> SearchResult:
     """Algorithm 1 on the batched engine: ``n_envs`` parallel episodes per
     dispatch (the single-cell view of :func:`run_search_cells`)."""
     return run_search_cells(workload, [node_nm], high_perf=high_perf,
                             search=search, lanes_per_cell=n_envs,
+                            checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=checkpoint_every, resume=resume,
                             device=device)[0]
 
 

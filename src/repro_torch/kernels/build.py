@@ -26,10 +26,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer (and the stream) is a c_void_p, every int c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+# C signatures: every pointer (and the stream) is a c_void_p, every int
+# c_int, a 64-bit int c_longlong and a double c_double
 SIGNATURES = {
     "actor_moe_forward": [_P] * 17 + [_I, _P],
     "screen_score_forward": [_P] * 10 + [_I, _I, _P],
+    "sumtree_set_many": [_P, _P, _P, _D, _I, _L, _P],
+    "fused_mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

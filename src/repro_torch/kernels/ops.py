@@ -1,4 +1,4 @@
-"""The search-loop kernels' launch counters.
+"""The port's kernels' launch counters.
 
 ``launch_counts`` reads how many CUDA launches each kernel's wrapper made;
 ``reset_launch_counts`` sets them to zero.
@@ -7,9 +7,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import actor_moe, screen_score
+from repro_torch.kernels import actor_moe, policy_mlp, screen_score, sumtree
 
-KERNELS = {"actor_moe": actor_moe, "screen_score": screen_score}
+KERNELS = {"actor_moe": actor_moe, "screen_score": screen_score,
+           "sumtree": sumtree, "fused_mlp": policy_mlp}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,9 +7,18 @@
 Writes the reference's four artifacts per run under ``--out``:
 ``<arch>__<node>nm__sac_tcc.json`` (per-TCC derivation),
 ``..._trace.json`` (convergence trace), ``..._pareto.json`` (frontier) and
-``<arch>__sac_summary.json`` (one result row per node).  Campaigns, fleets,
-the scalar engine, the random/grid baselines and ``--devices`` are not
-ported yet and are refused.
+``<arch>__sac_summary.json`` (one result row per node).
+
+Campaigns (``repro_torch.campaign``) run a whole grid and resume a killed
+one bit-for-bit:
+
+    python -m repro_torch.launch.dse --campaign grid.json --device cuda \
+        [--campaign-root experiments/campaigns]
+    python -m repro_torch.launch.dse --resume experiments/campaigns/<name>
+
+Fleets (``--workers`` and its flags), ``--transfer-from``,
+``--devices``/``--mesh``, the scalar engine and the random/grid baselines
+are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -95,6 +104,97 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
     return rows
 
 
+_NOT_PORTED = (
+    ("--devices", "devices", "sharding over several cards"),
+    ("--mesh", "mesh", "sharding over several cards"),
+    ("--transfer-from", "transfer_from", "cross-campaign transfer"),
+    ("--workers", "workers", "fleets"),
+    ("--hosts", "hosts", "fleets"),
+    ("--launch-template", "launch_template", "fleets"),
+    ("--lease-ttl", "lease_ttl", "fleets"),
+    ("--no-supervise", "no_supervise", "fleets"),
+)
+
+
+def validate_args(ap: argparse.ArgumentParser,
+                  a: argparse.Namespace) -> None:
+    """Reject invalid or not-yet-ported flag combinations up front with a
+    one-line error (the reference's checks, for what is ported)."""
+    for flag, attr, part in _NOT_PORTED:
+        if getattr(a, attr) not in (None, False):
+            ap.error(f"{flag}: not ported to repro_torch yet ({part})")
+    if a.method != "sac" or a.engine != "vec":
+        ap.error(f"--method {a.method} --engine {a.engine}: only --method "
+                 "sac --engine vec is ported to repro_torch")
+    if a.update_every != 1:
+        ap.error("--update-every: the vec engine updates per dispatch "
+                 "(SearchConfig.updates_per_dispatch); only 1 is accepted")
+    if a.n_envs < 1:
+        ap.error(f"--n-envs must be >= 1 (got {a.n_envs})")
+    if a.screen_k is not None and a.screen_k < 1:
+        ap.error(f"--screen-k must be >= 1 (got {a.screen_k})")
+    if a.gate_threshold is not None and a.gate_threshold < 0:
+        ap.error(f"--gate-threshold must be >= 0 (got {a.gate_threshold})")
+    gate_flags = [n for n, v in (("--screen-k", a.screen_k),
+                                 ("--gate-threshold", a.gate_threshold))
+                  if v is not None]
+    if a.no_surrogate_gate:
+        gate_flags.append("--no-surrogate-gate")
+    if gate_flags and a.resume:
+        ap.error(f"{'/'.join(gate_flags)}: a resumed campaign keeps the "
+                 "gate settings recorded in its manifest; start a new "
+                 "campaign to change them")
+    scen_flags = [n for n, v, d in (("--phase", a.phase, "decode"),
+                                    ("--dtype", a.dtype, "native"))
+                  if v != d]
+    if scen_flags and (a.campaign or a.resume):
+        ap.error(f"{'/'.join(scen_flags)} select the single-search "
+                 "scenario; scenario grids ('phases'/'dtypes' in the spec) "
+                 "are not ported to repro_torch yet")
+    if a.campaign and a.resume:
+        ap.error("--campaign starts a new run and --resume continues an "
+                 "existing one; pass exactly one")
+    if a.campaign and not os.path.isfile(a.campaign):
+        ap.error(f"--campaign grid file not found: {a.campaign}")
+    if a.resume and not os.path.isfile(os.path.join(a.resume,
+                                                    "manifest.json")):
+        ap.error(f"--resume: no campaign manifest under {a.resume}")
+
+
+def run_campaign_cli(ap: argparse.ArgumentParser,
+                     a: argparse.Namespace) -> None:
+    """``--campaign`` / ``--resume``: plan, run, persist and report."""
+    import dataclasses
+
+    from repro_torch.campaign import CampaignSpec, CampaignStore, run_campaign
+    if a.resume:
+        store = CampaignStore.open(a.resume)
+        if store.manifest.get("fleet"):
+            ap.error(f"--resume {a.resume}: a fleet campaign; fleets are "
+                     "not ported to repro_torch yet")
+        try:
+            store.spec          # a spec the port refuses raises here
+        except (ValueError, TypeError) as e:
+            ap.error(f"--resume {a.resume}: {e}")
+        run_campaign(a.resume, resume=True, device=a.device)
+        return
+    try:
+        spec = CampaignSpec.from_file(a.campaign)
+    except (ValueError, TypeError, RuntimeError, OSError) as e:
+        ap.error(f"--campaign {a.campaign}: {e}")
+    overrides = {}
+    if a.screen_k is not None:
+        overrides["screen_k"] = a.screen_k
+    if a.gate_threshold is not None:
+        overrides["gate_threshold"] = a.gate_threshold
+    if a.no_surrogate_gate:
+        overrides["surrogate_gate"] = False
+    if overrides:
+        spec = dataclasses.replace(spec, **overrides)
+    run_campaign(os.path.join(a.campaign_root, spec.name), spec,
+                 device=a.device)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b")
@@ -119,24 +219,29 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--screen-k", type=int, default=None)
     ap.add_argument("--gate-threshold", type=float, default=None)
     ap.add_argument("--no-surrogate-gate", action="store_true")
+    ap.add_argument("--campaign", default="",
+                    help="grid spec (.json/.yaml): run a full multi-workload"
+                         " x multi-node campaign instead of a single search")
+    ap.add_argument("--resume", default="",
+                    help="existing campaign run directory to resume")
+    ap.add_argument("--campaign-root", default="experiments/campaigns",
+                    help="parent directory for new campaign run dirs")
+    # refused until their slices land (see validate_args)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--transfer-from", action="append", default=None)
+    ap.add_argument("--workers", type=int, default=None)
+    ap.add_argument("--hosts", default=None)
+    ap.add_argument("--launch-template", default=None)
+    ap.add_argument("--lease-ttl", type=float, default=None)
+    ap.add_argument("--no-supervise", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     a = ap.parse_args(argv)
-    if a.method != "sac" or a.engine != "vec":
-        ap.error(f"--method {a.method} --engine {a.engine}: only --method "
-                 "sac --engine vec is ported to repro_torch")
-    if a.update_every != 1:
-        ap.error("--update-every: the vec engine updates per dispatch "
-                 "(SearchConfig.updates_per_dispatch); only 1 is accepted")
-    if a.devices is not None:
-        ap.error("--devices: sharding over several cards is not ported")
-    if a.n_envs < 1:
-        ap.error(f"--n-envs must be >= 1 (got {a.n_envs})")
-    if a.screen_k is not None and a.screen_k < 1:
-        ap.error(f"--screen-k must be >= 1 (got {a.screen_k})")
-    if a.gate_threshold is not None and a.gate_threshold < 0:
-        ap.error(f"--gate-threshold must be >= 0 (got {a.gate_threshold})")
+    validate_args(ap, a)
+    if a.campaign or a.resume:
+        run_campaign_cli(ap, a)
+        return
     nodes = list(NODES) if a.nodes == "all" else [
         int(x) for x in a.nodes.split(",")]
     run(a.arch, nodes=nodes, mode=a.mode, episodes=a.episodes,

@@ -3,9 +3,12 @@ port of ``repro.ppa.surrogate``).
 
 An MLP [82 -> 128 -> 64 -> 3] maps (state, action) to log1p-space (power,
 perf, area) estimates, trained online from evaluated transitions.
-:func:`screen_batch` scores K candidate actions per env through
-``kernels.screen_score`` (the CUDA kernel on the card) and picks the
-surrogate-best where a cell's gate is open.  The serving-side
+Inference (:func:`predict`: calibration, ``Surrogate.__call__``, the MPC
+reward) runs through ``kernels.policy_mlp`` (the ``fused_mlp`` CUDA kernel
+on the card); training keeps autograd over the plain ops
+(:func:`predict_plain`).  :func:`screen_batch` scores K candidate actions
+per env through ``kernels.screen_score`` and picks the surrogate-best
+where a cell's gate is open.  The serving-side
 ``fit_index_surrogate`` / ``score_query_batch`` are not ported yet.
 """
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.networks import gelu
-from repro_torch.kernels import screen_score
+from repro_torch.kernels import policy_mlp, screen_score
 from repro_torch.optim.adam import tree_leaves, tree_map
 from repro_torch.ppa.analytic import M_IDX
 
@@ -42,11 +45,18 @@ def init_params(gen: torch.Generator, in_dim: int, device="cpu",
     return tree_map(lambda t: t.to(device), p)
 
 
-def predict(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """x: [..., in_dim] -> [..., 3] log1p-space (power, perf, area)."""
+def predict_plain(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., in_dim] -> [..., 3] log1p-space (power, perf, area), in
+    plain (differentiable) ops: the training path."""
     h = gelu(x @ params["l1"]["w"] + params["l1"]["b"])
     h = gelu(h @ params["l2"]["w"] + params["l2"]["b"])
     return h @ params["head"]["w"] + params["head"]["b"]
+
+
+def predict(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The same function for inference, through the ``fused_mlp`` kernel
+    (plain version for CPU tensors); no gradient."""
+    return policy_mlp.mlp(params, x, "head")
 
 
 def targets_from_metrics(metrics: torch.Tensor) -> torch.Tensor:
@@ -55,7 +65,7 @@ def targets_from_metrics(metrics: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.sum((predict(params, x) - y) ** 2, dim=-1))
+    return torch.mean(torch.sum((predict_plain(params, x) - y) ** 2, dim=-1))
 
 
 def init_opt(params: Dict) -> Dict:

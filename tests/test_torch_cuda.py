@@ -1,23 +1,29 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
-at the main path's shapes and ragged ones, the batched env step on the card
-against the CPU, and the search's determinism guarantees on the card.
+at the main path's shapes and ragged ones, the device PER on the card
+against the same buffer on the CPU, the batched env step on the card
+against the CPU, the search's determinism guarantees on the card, and a
+short campaign that launches every kernel and resumes bit-for-bit.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.core.search as search_mod
+from repro_torch.campaign import CampaignSpec, CampaignStore, run_campaign
 from repro_torch.configs import get_config
-from repro_torch.core import mpc, sac
+from repro_torch.core import mpc, replay, sac
 from repro_torch.core import world_model as wm
 from repro_torch.core.networks import to_device
 from repro_torch.core.env import VecDSEEnv
 from repro_torch.core.search import SearchConfig, run_search
-from repro_torch.kernels import actor_moe, ops, screen_score
+from repro_torch.kernels import (actor_moe, ops, policy_mlp, screen_score,
+                                  sumtree)
 from repro_torch.ppa import analytic as an
 from repro_torch.ppa import surrogate as sur
 from repro_torch.workload.extract import extract
@@ -147,3 +153,141 @@ def test_search_on_card_is_deterministic_and_uses_the_kernels(dev):
     assert r.gate_open_episode is not None
     assert a == _short(gate_threshold=1e9)[1]
     assert _short(gate_threshold=0.0)[1] == _short(surrogate_gate=False)[1]
+
+
+@pytest.mark.parametrize("cap", [8, 100, 257, 100_000])
+@pytest.mark.parametrize("n", [1, 64, 256, 448, 1500])
+def test_sumtree_kernel_matches_plain_bitwise(dev, cap, n):
+    """Both are float64 sums of final children, so bitwise; duplicates are
+    last-write-wins and N > 1024 is split into ordered launches."""
+    rng = np.random.default_rng(cap + n)
+    base = replay.SumTree(cap)
+    base.set_many(np.arange(cap), rng.random(cap))
+    idx = rng.integers(0, cap, n)
+    idx[-1] = idx[0]
+    for vals in (rng.random(n), 0.25):
+        want = torch.as_tensor(base.tree.copy())
+        sumtree.sumtree_set_many_plain(want, torch.as_tensor(idx), vals if
+                                       np.ndim(vals) == 0 else
+                                       torch.as_tensor(vals))
+        got = torch.as_tensor(base.tree.copy(), device=dev)
+        before = sumtree.launches
+        sumtree.sumtree_set_many(got, torch.as_tensor(idx, device=dev),
+                                 vals if np.ndim(vals) == 0 else
+                                 torch.as_tensor(vals, device=dev))
+        torch.cuda.synchronize()
+        assert sumtree.launches == before + -(-n // sumtree.MAX_N)
+        assert torch.equal(got.cpu(), want)
+        assert float(got[1]) == pytest.approx(float(got[cap:].sum()),
+                                              rel=1e-12)
+
+
+def test_device_per_on_card_matches_cpu(dev):
+    """The same calls on the card and on the CPU: identical sampled
+    indices, transitions and trees (the CPU buffer is held to the
+    reference's in test_torch_replay.py); is_w to rtol 1e-6 (CUDA's
+    float64 pow is not libm's)."""
+    rng = np.random.default_rng(0)
+    bufs = [replay.PERBuffer(52, 30, 4, seed=1, device=d)
+            for d in (dev, "cpu")]
+    for _ in range(4):
+        tr = (rng.normal(size=(448, 52)).astype(np.float32),
+              rng.uniform(-1, 1, (448, 30)).astype(np.float32),
+              rng.integers(0, 5, (448, 4)).astype(np.int32),
+              rng.normal(size=448).astype(np.float32),
+              rng.normal(size=(448, 52)).astype(np.float32),
+              np.zeros(448, np.float32))
+        for b in bufs:
+            b.add_batch(*tr)
+        for _ in range(4):
+            (og, ig), (oc, ic) = (b.sample(256) for b in bufs)
+            assert torch.equal(ig.cpu(), ic)
+            for k in replay.PERBuffer.FIELDS:
+                assert torch.equal(og[k].cpu(), oc[k])
+            torch.testing.assert_close(og["is_w"].cpu(), oc["is_w"],
+                                       rtol=1e-6, atol=0)
+            td = np.abs(rng.normal(size=256)).astype(np.float32)
+            bufs[0].update_priorities(ig, torch.as_tensor(td, device=dev))
+            bufs[1].update_priorities(ic, torch.as_tensor(td))
+        assert torch.equal(bufs[0].tree.cpu(), bufs[1].tree)
+
+
+@pytest.mark.parametrize("b,d_out", [(448, 3), (4096, 52), (33, 3),
+                                     (33, 52), (1, 52)])
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, RTOL, ATOL), (torch.bfloat16, 3e-2, 3e-2)])
+def test_fused_mlp_kernel_matches_plain(dev, b, d_out, dtype, rtol, atol):
+    g = _gen(dev, b + d_out)
+    ws = [torch.randn(s, generator=g, device=dev) * 0.1
+          for s in ((82, 128), (128,), (128, 64), (64,), (64, d_out),
+                    (d_out,))]
+    x = torch.randn((b, 82), generator=g, device=dev).to(dtype)
+    before = policy_mlp.launches
+    with torch.no_grad():
+        got = policy_mlp.fused_mlp(x, *ws)
+        torch.cuda.synchronize()
+        want = policy_mlp.fused_mlp_plain(x, *ws)
+    assert policy_mlp.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, d_out)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    with torch.no_grad():
+        assert torch.equal(got, policy_mlp.fused_mlp(x, *ws))
+
+
+def test_new_wrappers_check_their_inputs(dev):
+    tree = torch.zeros(16, dtype=torch.float64, device=dev)
+    idx = torch.zeros(3, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="sumtree: tree"):
+        sumtree.sumtree_set_many(tree.float(), idx, 1.0)
+    with pytest.raises(ValueError, match="sumtree: idx"):
+        sumtree.sumtree_set_many(tree, idx.int(), 1.0)
+    with pytest.raises(ValueError, match="sumtree: values"):
+        sumtree.sumtree_set_many(tree, idx, torch.ones(2, dtype=torch.float64,
+                                                       device=dev))
+    ws = [torch.zeros(s, device=dev) for s in ((82, 128), (128,), (128, 64),
+                                               (64,), (64, 3), (3,))]
+    x = torch.zeros((4, 82), device=dev)
+    with pytest.raises(ValueError, match="fused_mlp: x"):
+        policy_mlp.fused_mlp(x.double(), *ws)
+    with pytest.raises(ValueError, match="fused_mlp: x"):
+        policy_mlp.fused_mlp(torch.zeros((82, 4), device=dev).t(), *ws)
+    with pytest.raises(ValueError, match="fused_mlp: expected"):
+        policy_mlp.fused_mlp(torch.zeros((4, 81), device=dev), *ws)
+    with pytest.raises(RuntimeError, match="no backward"):
+        policy_mlp.fused_mlp(x, ws[0].requires_grad_(True), *ws[1:])
+
+
+def test_campaign_on_card_launches_every_kernel_and_resumes_bitwise(
+        dev, tmp_path, monkeypatch):
+    spec = CampaignSpec(name="card", workloads=["smolvlm"], nodes=[3, 28],
+                        modes=["low_power"], episodes=640, lanes=64,
+                        max_envs=448, checkpoint_every=4,
+                        gate_threshold=1e9)
+    ops.reset_launch_counts()
+    ref = run_campaign(str(tmp_path / "ref"), spec, progress=lambda m: None)
+    counts = ops.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts
+    real_save = search_mod._save_search_ckpt
+
+    def killing_save(*args, **kw):
+        real_save(*args, **kw)
+        raise KeyboardInterrupt("simulated kill after the first checkpoint")
+
+    monkeypatch.setattr(search_mod, "_save_search_ckpt", killing_save)
+    root = str(tmp_path / "ck")
+    with pytest.raises(KeyboardInterrupt):
+        run_campaign(root, spec, progress=lambda m: None)
+    monkeypatch.setattr(search_mod, "_save_search_ckpt", real_save)
+    store = run_campaign(root, resume=True, progress=lambda m: None)
+    assert store.all_done()
+    for cid in ref.manifest["cells"]:
+        a = {k: v for k, v in ref.load_summary(cid).items() if k != "wall_s"}
+        b = {k: v for k, v in store.load_summary(cid).items()
+             if k != "wall_s"}
+        assert a == b, cid
+        fa, fb = (s.load_archive(cid).frontier() for s in (ref, store))
+        for k in fa:
+            np.testing.assert_array_equal(np.sort(fa[k]), np.sort(fb[k]))
+    assert os.path.isfile(os.path.join(root, "report", "cells.json"))
+    assert isinstance(CampaignStore.open(root), CampaignStore)

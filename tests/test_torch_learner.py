@@ -279,3 +279,30 @@ def test_mpc_plan_with_reference_noise():
                    noise=T(noise)).numpy()
     # the same candidate wins: its first action is the same noise draw
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
+
+
+def test_mpc_rollouts_go_through_the_kernel_wrappers(monkeypatch):
+    """Every network call of ``mpc.plan`` goes through a kernel wrapper
+    (``actor_moe`` for the actor, ``fused_mlp`` for the surrogate reward
+    and the world-model step), never a plain version directly, so on the
+    card the rollouts launch the kernels (an earlier ``plan`` called the
+    plain actor on card tensors too)."""
+    from repro_torch.kernels import actor_moe, policy_mlp
+    calls = {"actor": 0, "mlp": 0}
+    real_actor, real_mlp = actor_moe.actor_forward, policy_mlp.fused_mlp
+
+    def actor(*a):
+        calls["actor"] += 1
+        return real_actor(*a)
+
+    def mlp(*a):
+        calls["mlp"] += 1
+        return real_mlp(*a)
+
+    monkeypatch.setattr(actor_moe, "actor_forward", actor)
+    monkeypatch.setattr(policy_mlp, "fused_mlp", mlp)
+    g = torch.Generator().manual_seed(0)
+    mpc.plan(sac.create(0).params.actor, wm.create(1).params,
+             sur.Surrogate.create(SAC_STATE_DIM + N_CONT, seed=2).params,
+             torch.randn((3, SAC_STATE_DIM), generator=g), gen=g)
+    assert calls == {"actor": 1 + mpc.HORIZON, "mlp": 2 * mpc.HORIZON}
