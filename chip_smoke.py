@@ -15,8 +15,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the saturated tanh and a peaked gate are reached; ``fused_mlp`` also
      with bf16 input (3e-2); ``sumtree`` bitwise (float64 sums of final
      children) at caps 8, 100, 257 and 100,000 with duplicates and a
-     scalar broadcast; the device PER's sampled indices and tree against
-     the host ``SumTree`` on the same uniforms; the batched env step and
+     scalar broadcast; ``sumtree_sample`` (the device PER's descent)
+     bitwise against its plain version and the host ``SumTree`` walk; the
+     device PER's sampled indices and tree against the host ``SumTree`` on
+     the same uniforms; the batched env step and
      the MPC rollouts on the card against the same on the CPU;
   4. timing: device time of each kernel and of its plain version (200
      calls replayed from a CUDA graph, between CUDA events; the plain
@@ -36,10 +38,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      with the launch counts read around it (``sumtree`` and ``fused_mlp``
      must launch); each cell's best design re-evaluated on the CPU; a
      profile of 12 dispatches of one such batch;
-  7. kill/resume on the card: a smaller campaign run once, run again and
-     killed after its second checkpoint, then resumed with ``--resume``;
-     its summaries (but their clock) and frontiers must equal the first
-     run's, bitwise;
+  7. kill/resume on the card: a smaller campaign (SmolVLM, both modes,
+     nodes 3 and 28) run once, run again and killed after its second
+     checkpoint (in the high-performance batch, whose cells must have
+     non-empty frontiers), then resumed with ``--resume``; its summaries
+     (but their clock) and frontiers must equal the first run's, bitwise;
   8. one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
@@ -74,9 +77,13 @@ GRID = dict(name="paper-grid", workloads=["llama3.1-8b", "smolvlm"],
             nodes=[3, 5, 7, 10, 14, 22, 28], modes=["high_perf", "low_power"],
             episodes=4613, lanes=64, max_envs=448, seed=0, seq_len=2048,
             batch=3, checkpoint_every=8)
+# high_perf first: batch 0, where the kill lands, finds feasible designs at
+# this budget (no low-power cell does), so the resumed frontiers compared
+# are not empty
 KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
-                 modes=["low_power"], episodes=1280, lanes=64, max_envs=448,
-                 seed=0, seq_len=2048, batch=3, checkpoint_every=4)
+                 modes=["high_perf", "low_power"], episodes=1280, lanes=64,
+                 max_envs=448, seed=0, seq_len=2048, batch=3,
+                 checkpoint_every=4)
 SUMTREE_CAP = 100_000
 
 
@@ -169,6 +176,15 @@ def sumtree_work(idx: np.ndarray, cap: int, scalar: bool) -> tuple:
                                                      8 * len(idx))
 
 
+def sample_work(n: int, cap: int) -> tuple:
+    """The same for one ``sumtree_sample`` call of N samples: one float64
+    node read per level per sample (the root once), the uniforms read and
+    the int64 indices written; one compare and at most one subtraction per
+    level."""
+    levels = max(2 * cap - 1, 1).bit_length() - 1
+    return 2.0 * n * levels, 8 * n * levels + 8 + 8 * n + 8 * n
+
+
 def main() -> None:
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -187,7 +203,7 @@ def main() -> None:
     from repro_torch.core.search import (SearchConfig, run_search,
                                          run_search_cells)
     from repro_torch.kernels import (actor_moe, build, ops, policy_mlp,
-                                     screen_score, sumtree)
+                                     screen_score, sumtree, sumtree_sample)
     from repro_torch.launch import dse
     from repro_torch.optim.adam import tree_leaves
     from repro_torch.ppa import analytic as an
@@ -221,8 +237,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     actor = sac.create(SEED, dev).params.actor
     sur_params = sur.Surrogate.create(82, seed=SEED + 2, device=dev).params
-    errs = {"actor_moe": 0.0, "screen_score": 0.0, "sumtree": 0.0,
-            "fused_mlp": 0.0}
+    errs = {name: 0.0 for name in ops.KERNELS}
     names = ("disc", "mu", "log_std", "gate")
     # a fresh actor's heads (x1e-2) and gate (x0.01) keep every output near
     # 0.  "hot" scales the heads x5 and the gate x100 (one expert takes most
@@ -319,6 +334,32 @@ def main() -> None:
     log("parity sumtree: bitwise == plain at caps 8/100/257/100000, "
         "N 1/64/256/448/1500, per-leaf values and scalar broadcast; root == "
         "sum of leaves (rtol 1e-12)")
+    # sumtree_sample: bitwise against the plain descent and the host walk,
+    # on trees with zero leaves (prefix sums landing on boundaries) and
+    # leaves on two levels
+    for cap in (1, 8, 100, 257, SUMTREE_CAP):
+        host = replay.SumTree(cap)
+        host.set_many(np.arange(cap),
+                      nrng.integers(0, 4, cap).astype(np.float64))
+        tree_d = torch.as_tensor(host.tree, device=dev)
+        for n, size in ((1, cap), (33, cap), (256, max(1, cap // 2)),
+                        (448, cap)):
+            u = nrng.random(n)
+            got = sumtree_sample.sumtree_sample_cuda(
+                tree_d, torch.as_tensor(u, device=dev), size).cpu()
+            want = sumtree_sample.sumtree_sample_plain(
+                torch.as_tensor(host.tree), torch.as_tensor(u), size)
+            walk = np.minimum([host.sample(float(v)) for v in
+                               (np.arange(n) + u) * (host.total() / n)],
+                              size - 1)
+            errs["sumtree_sample"] = max(errs["sumtree_sample"], float(
+                (got - want).abs().max()))
+            if not (torch.equal(got, want)
+                    and np.array_equal(got.numpy(), walk)):
+                fail(f"sumtree_sample cap {cap} N={n}: indices differ from "
+                     "the plain descent or the host SumTree walk")
+    log("parity sumtree_sample: bitwise == plain and host SumTree walk at "
+        "caps 1/8/100/257/100000, N 1/33/256/448")
     # the device PER against the host SumTree: the same inserts and
     # priority refreshes, then the host descent on the buffer's own uniforms
     buf = replay.PERBuffer(52, 30, 4, seed=SEED, device=dev)
@@ -453,6 +494,14 @@ def main() -> None:
               lambda: sumtree.sumtree_set_many_cuda(tree, idx, vals),
               lambda: sumtree.sumtree_set_many_plain(tree, idx, vals),
               sumtree_work(idx_np, SUMTREE_CAP, False), plain_in_graph=False)
+    for n in (256,):
+        u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        timed(("sumtree_sample", n), f"N={n} cap={SUMTREE_CAP}",
+              lambda: sumtree_sample.sumtree_sample_cuda(tree, u,
+                                                         SUMTREE_CAP),
+              lambda: sumtree_sample.sumtree_sample_plain(tree, u,
+                                                          SUMTREE_CAP),
+              sample_work(n, SUMTREE_CAP))
     for b, d_out in ((448, 3), (4096, 52), (28672, 52)):
         x = torch.randn((b, 82), generator=gen, device=dev)
         timed(("fused_mlp", b), f"[{b},82]->{d_out}",
@@ -598,7 +647,7 @@ def main() -> None:
              f"{len(batch_results)} batches")
     log(f"campaign: 28 cells in 4 batches, wall {camp_wall:.3f} s; "
         f"launches {json.dumps(camp_counts)}")
-    for name in ("sumtree", "fused_mlp"):
+    for name in ("sumtree", "sumtree_sample", "fused_mlp"):
         if camp_counts[name] <= 0:
             fail(f"kernel {name} was never launched on the campaign path")
     camp_disp = []
@@ -665,7 +714,7 @@ def main() -> None:
 
     def killing_save(*args, **kw):
         out = real_save(*args, **kw)
-        saves.append(args[1])
+        saves.append((os.path.basename(args[0]), args[1]))
         if len(saves) == 2:
             raise KeyboardInterrupt("simulated kill after checkpoint 2")
         return out
@@ -676,7 +725,8 @@ def main() -> None:
                   "--device", "cuda"])
         fail("the killed campaign ran to its end")
     except KeyboardInterrupt:
-        log(f"kill/resume: killed after checkpoints at dispatches {saves}")
+        log(f"kill/resume: killed after checkpoints (batch, dispatch) "
+            f"{saves}")
     finally:
         search_mod._save_search_ckpt = real_save
     dse.main(["--resume", os.path.join(kill_roots[1], KILL_GRID["name"]),
@@ -685,7 +735,15 @@ def main() -> None:
             for r in kill_roots)
     if not (a.all_done() and b.all_done()):
         fail("kill/resume: a run did not finish")
+    if "high_perf" not in saves[-1][0]:
+        fail(f"kill/resume: the kill landed in {saves[-1][0]}, not in the "
+             "high-performance batch")
+    sizes = {}
     for cid in a.manifest["cells"]:
+        sizes[cid] = len(a.load_archive(cid))
+        if "high_perf" in cid and not sizes[cid]:
+            fail(f"kill/resume: {cid} found no design, so its resume would "
+                 "compare empty frontiers")
         sa, sb = ({k: v for k, v in st.load_summary(cid).items()
                    if k != "wall_s"} for st in (a, b))
         fa, fb = (st.load_archive(cid).frontier() for st in (a, b))
@@ -693,12 +751,12 @@ def main() -> None:
                 np.array_equal(np.sort(fa[k]), np.sort(fb[k])) for k in fa):
             fail(f"kill/resume: {cid} differs from the uninterrupted run")
     log(f"kill/resume: resumed summaries (but wall_s) and frontiers == the "
-        f"uninterrupted run's for {sorted(a.manifest['cells'])}")
+        f"uninterrupted run's; frontier sizes {json.dumps(sizes)}")
 
     # ---- 8. results -------------------------------------------------------
     # actor_moe and screen_score at the single search's shapes with its
-    # launch counts; sumtree and fused_mlp at the campaign batch's (B = 448)
-    # with the campaign's counts
+    # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
+    # batch's (B = 448; 256 samples per SAC update) with the campaign's
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, replaces, key, shape, path_counts in (
@@ -708,6 +766,9 @@ def main() -> None:
              "B=64,K=4", counts),
             ("sumtree", "src/repro/kernels/sumtree.py:63", 448,
              f"N=448,cap={SUMTREE_CAP}", camp_counts),
+            # no TPU kernel: the reference's host loop of SumTree.sample
+            ("sumtree_sample", "src/repro/core/replay.py:120", 256,
+             f"N=256,cap={SUMTREE_CAP}", camp_counts),
             ("fused_mlp", "src/repro/kernels/policy_mlp.py:60", 448,
              "[448,82]->3", camp_counts)):
         ms, plain, bnd, by, call = timings[(name, key)]

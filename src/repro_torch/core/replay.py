@@ -5,8 +5,9 @@ p_i = (|delta_i| + 1e-6)^0.6, importance-sampling exponent beta annealed
 
 :class:`PERBuffer` lives on the buffer's device: the transition arrays and
 the float64 sum-tree are tensors there, the tree is written through the
-``sumtree`` kernel (``kernels.sumtree``) and sampled by a descent
-vectorised over the batch.  The tree stays float64, as the reference's
+``sumtree`` kernel (``kernels.sumtree``) and sampled through the
+``sumtree_sample`` descent kernel (``kernels.sumtree_sample``), one thread
+per sample.  The tree stays float64, as the reference's
 host tree: every node is one float64 addition of its final children, and
 the descent compares and subtracts in float64, so for the same uniforms
 the port samples the reference's indices.  Host randomness (the uniforms)
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.device import to_numpy
 from repro_torch.kernels import sumtree as sumtree_kernel
+from repro_torch.kernels import sumtree_sample
 
 CAPACITY = 100_000
 ALPHA_PER = 0.6
@@ -79,23 +81,6 @@ class SumTree:
             i = i[i >= 1]
 
 
-def descend(tree: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """``SumTree.sample`` for every uniform in ``u`` [N] float64 at once:
-    the leaf index whose prefix sum reaches ``u``, walked level by level
-    (at most ``log2(2 * cap)`` steps; a lane that reached a leaf of the
-    shallower leaf level stays put)."""
-    cap = tree.shape[0] // 2
-    i = torch.ones(u.shape, dtype=torch.int64, device=tree.device)
-    for _ in range(max(2 * cap - 1, 1).bit_length() - 1):
-        inner = i < cap
-        two_i = 2 * i
-        left = tree[torch.where(inner, two_i, 1)]
-        right = inner & (u > left)
-        u = torch.where(right, u - left, u)
-        i = torch.where(inner, two_i + right, i)
-    return i - cap
-
-
 class PERBuffer:
     """Device-resident PER with the reference's semantics for ``add_batch``,
     ``sample``, ``update_priorities``, ``recent``, ``pos``, ``size``,
@@ -145,9 +130,7 @@ class PERBuffer:
         tensors, indices [batch] int64 on the device)."""
         total = self.tree[1]
         u = torch.as_tensor(self.rng.random(batch), device=self.device)
-        us = (torch.arange(batch, dtype=torch.float64, device=self.device)
-              + u) * (total / batch)
-        idx = torch.clamp_max(descend(self.tree, us), self.size - 1)
+        idx = sumtree_sample.sumtree_sample(self.tree, u, self.size)
         probs = self.tree[idx + self.capacity] / torch.clamp_min(total,
                                                                  1e-12)
         w = (self.size * torch.clamp_min(probs, 1e-12)) ** (-self.beta)

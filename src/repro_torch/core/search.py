@@ -509,15 +509,11 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
 
 def run_search(workload: Workload, node_nm: int, *, high_perf: bool = True,
                search: Optional[SearchConfig] = None, n_envs: int = 64,
-               checkpoint_dir: Optional[str] = None,
-               checkpoint_every: int = 0, resume: bool = False,
                device="cuda") -> SearchResult:
     """Algorithm 1 on the batched engine: ``n_envs`` parallel episodes per
     dispatch (the single-cell view of :func:`run_search_cells`)."""
     return run_search_cells(workload, [node_nm], high_perf=high_perf,
                             search=search, lanes_per_cell=n_envs,
-                            checkpoint_dir=checkpoint_dir,
-                            checkpoint_every=checkpoint_every, resume=resume,
                             device=device)[0]
 
 

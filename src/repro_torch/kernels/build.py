@@ -34,6 +34,7 @@ SIGNATURES = {
     "actor_moe_forward": [_P] * 17 + [_I, _P],
     "screen_score_forward": [_P] * 10 + [_I, _I, _P],
     "sumtree_set_many": [_P, _P, _P, _D, _I, _L, _P],
+    "sumtree_sample": [_P, _P, _P, _I, _L, _L, _P],
     "fused_mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
 }
 

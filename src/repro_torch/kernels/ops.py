@@ -7,10 +7,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import actor_moe, policy_mlp, screen_score, sumtree
+from repro_torch.kernels import (actor_moe, policy_mlp, screen_score,
+                                 sumtree, sumtree_sample)
 
 KERNELS = {"actor_moe": actor_moe, "screen_score": screen_score,
-           "sumtree": sumtree, "fused_mlp": policy_mlp}
+           "sumtree": sumtree, "sumtree_sample": sumtree_sample,
+           "fused_mlp": policy_mlp}
 
 
 def launch_counts() -> Dict[str, int]:

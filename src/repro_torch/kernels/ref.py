@@ -5,11 +5,14 @@ from repro_torch.kernels.actor_moe import actor_forward_plain
 from repro_torch.kernels.policy_mlp import fused_mlp_plain
 from repro_torch.kernels.screen_score import screen_scores_plain
 from repro_torch.kernels.sumtree import sumtree_set_many_plain
+from repro_torch.kernels.sumtree_sample import sumtree_sample_plain
 
 actor_forward_reference = actor_forward_plain
 screen_scores_reference = screen_scores_plain
 fused_mlp_reference = fused_mlp_plain
 sumtree_set_many_reference = sumtree_set_many_plain
+sumtree_sample_reference = sumtree_sample_plain
 
 __all__ = ["actor_forward_reference", "screen_scores_reference",
-           "fused_mlp_reference", "sumtree_set_many_reference"]
+           "fused_mlp_reference", "sumtree_set_many_reference",
+           "sumtree_sample_reference"]

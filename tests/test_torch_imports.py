@@ -30,6 +30,7 @@ print("NAMES", ",".join(names))
 # the modules each slice added, which must be among those imported
 PORTED = ("repro_torch.checkpoint.manager", "repro_torch.core.fsutil",
           "repro_torch.core.replay", "repro_torch.kernels.sumtree",
+          "repro_torch.kernels.sumtree_sample",
           "repro_torch.kernels.policy_mlp", "repro_torch.campaign.planner",
           "repro_torch.campaign.store", "repro_torch.campaign.report",
           "repro_torch.campaign.runner", "repro_torch.launch.dse")

@@ -18,7 +18,7 @@ from repro.ppa import surrogate as ref_sur
 from repro_torch import convert
 from repro_torch.core import networks as nets
 from repro_torch.kernels import (actor_moe, ops, policy_mlp, ref,
-                                  screen_score, sumtree)
+                                  screen_score, sumtree, sumtree_sample)
 from repro_torch.ppa import surrogate as sur
 
 # fp32 with sums in another order than XLA's (the reference kernel tests'
@@ -112,8 +112,12 @@ def test_cpu_tensors_take_the_plain_version():
     got = sumtree.sumtree_set_many(tree.clone(), idx, vals)
     assert torch.equal(got, ref.sumtree_set_many_reference(tree.clone(), idx,
                                                            vals))
+    u = torch.tensor([0.1, 0.9], dtype=torch.float64)
+    assert torch.equal(sumtree_sample.sumtree_sample(got, u, 8),
+                       ref.sumtree_sample_reference(got, u, 8))
     assert ops.launch_counts() == {"actor_moe": 0, "screen_score": 0,
-                                   "sumtree": 0, "fused_mlp": 0}
+                                   "sumtree": 0, "sumtree_sample": 0,
+                                   "fused_mlp": 0}
 
 
 def _mlp_weights(d_out, rng=RNG):
@@ -204,6 +208,10 @@ def test_wrappers_refuse_other_devices():
         sumtree.sumtree_set_many(torch.zeros(8, dtype=torch.float64,
                                              device="meta"),
                                  torch.zeros(1, dtype=torch.int64), 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sumtree_sample.sumtree_sample(torch.zeros(8, dtype=torch.float64,
+                                                  device="meta"),
+                                      torch.zeros(1, dtype=torch.float64), 4)
     with pytest.raises(ValueError, match="unsupported device"):
         policy_mlp.fused_mlp(torch.zeros((2, 82), device="meta"),
                              *(torch.as_tensor(w) for w in _mlp_weights(3)))

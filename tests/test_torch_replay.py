@@ -20,6 +20,7 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs import get_config
 from repro_torch.core import replay
 from repro_torch.core import search
+from repro_torch.kernels import sumtree_sample
 from repro_torch.workload.extract import extract
 
 S, C, D = 52, 30, 4
@@ -91,9 +92,19 @@ def test_descent_matches_host_sample(cap):
     total = st.total()
     u = np.concatenate([rng.random(500) * total,
                         np.cumsum(st.tree[cap:])[:50], [0.0, total]])
-    got = replay.descend(torch.as_tensor(st.tree), torch.as_tensor(u))
+    got = sumtree_sample.descend(torch.as_tensor(st.tree),
+                                 torch.as_tensor(u))
     np.testing.assert_array_equal(got.numpy(),
                                   [st.sample(float(x)) for x in u])
+    # the sampler's stratified prefix sums and clamp, as the reference's
+    # PERBuffer.sample forms them
+    for n, size in ((1, cap), (64, max(1, cap // 2))):
+        uni = rng.random(n)
+        want = np.minimum([st.sample(float(x)) for x in
+                           (np.arange(n) + uni) * (total / n)], size - 1)
+        got = sumtree_sample.sumtree_sample(torch.as_tensor(st.tree),
+                                            torch.as_tensor(uni), size)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_checkpoints_cross_the_packages(tmp_path):

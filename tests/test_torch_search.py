@@ -89,7 +89,8 @@ def test_cpu_run_launches_no_kernel():
     ops.reset_launch_counts()
     _search(episodes=4 * N_ENVS, gate_threshold=1e9)
     assert ops.launch_counts() == {"actor_moe": 0, "screen_score": 0,
-                                   "sumtree": 0, "fused_mlp": 0}
+                                   "sumtree": 0, "sumtree_sample": 0,
+                                   "fused_mlp": 0}
 
 
 def test_cli_writes_the_four_artifacts(tmp_path, capsys):
