@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the design-space search on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (the design-space search, campaigns and LM
+serving) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -20,10 +21,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      device PER's sampled indices and tree against the host ``SumTree`` on
      the same uniforms; the batched env step and
      the MPC rollouts on the card against the same on the CPU;
+     ``flash_attention`` over the reference's sweep, ragged lengths and the
+     LM prefill shapes (fp32 2e-5, fp16/bf16 2e-2); ``ssm_scan`` at Jamba's
+     prefill shape and ragged ones (rtol/atol 1e-4 on y and the final
+     state);
   4. timing: device time of each kernel and of its plain version (200
      calls replayed from a CUDA graph, between CUDA events; the plain
-     ``sumtree`` synchronises, so its eager time), the eager call time with
-     the host's work, and the least time the card could take;
+     ``sumtree`` synchronises, so its eager time; the plain ``ssm_scan``,
+     a loop of S steps, is 2 calls in a graph replayed 100 times and 10
+     eager calls), the eager call time with the host's work, the least time the card could take, and for ``flash_attention``
+     PyTorch's ``scaled_dot_product_attention`` on the same inputs;
   5. the single-search path: ``repro_torch.launch.dse.run`` on ``cuda``
      (Llama 3.1 8B decode, seq 2048, batch 3, high-performance mode, node
      3, 4,613 episodes, 64 envs, seed 0, gate threshold ``GATE_THRESHOLD``)
@@ -43,15 +50,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      checkpoint (in the high-performance batch, whose cells must have
      non-empty frontiers), then resumed with ``--resume``; its summaries
      (but their clock) and frontiers must equal the first run's, bitwise;
-  8. one JSON line per kernel, then the result line.
+  8. LM serving: ``repro_torch.launch.serve``'s ``inputs`` + ``generate``
+     (prefill, then greedy decode with a tail flush every 64 steps) on
+     ``cuda`` for ``LM_RUNS``: Llama 3.1 8B whole (fp16), Jamba v0.1 at full
+     width and one period of depth (8 layers, bf16), and Llama 3.1 8B at
+     full width, 2 layers, in float32; the launch counts read around each
+     run; the same weights again with the two kernels' plain versions put
+     in their place: prefill logits within ``tol`` of max |logit|, and the
+     same greedy tokens for the float32 run;
+  9. one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -61,8 +78,9 @@ SRC = os.path.join(ROOT, "src")
 OUT = os.path.join(ROOT, "experiments", "dse", "chip_smoke")  # git-ignored
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain: fp32, other sum order
 # H100 SXM published peaks (NVIDIA data sheet): fp32 without tensor cores,
-# and HBM3 bandwidth
+# fp16/bf16 dense on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_HALF_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 EPISODES, N_ENVS, NODE, SEED = 4613, 64, 3, 0
 # The default Eq.-67 threshold (0.05) never opens the screening gate in this
@@ -85,6 +103,37 @@ KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
                  max_envs=448, seed=0, seq_len=2048, batch=3,
                  checkpoint_every=4)
 SUMTREE_CAP = 100_000
+SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
+                  "fused_mlp")
+# LM serving: (label, arch, config changes, batch, prompt, generated tokens,
+# logits tolerance as a share of max |logit|).  Llama 3.1 8B fits whole
+# (16 GB in fp16); Jamba's 32 layers (104 GB in bf16) do not, so it runs
+# one period: 8 layers, 1 attention + 7 Mamba, 4 of them MoE (26.5 GB).
+# 512 + 128 = 640 = 10 x KV_TAIL cache positions: one tail flush.  The
+# tolerances: fp16 2e-2; bf16 5e-2, the reference's own bound for a bf16
+# model (its decode-vs-forward test), as bf16 keeps 3 bits fewer than fp16
+# and the two paths' logits differ by ~5 output ulps in either type; fp32
+# 1e-4.
+LM_RUNS = (
+    ("a", "llama3.1-8b", {}, 4, 512, 128, 2e-2),
+    ("b", "jamba-v0.1-52b", dict(n_layers=8), 4, 512, 128, 5e-2),
+    ("c", "llama3.1-8b", dict(n_layers=2, param_dtype="float32"), 4, 512,
+     32, 1e-4),
+)
+# the LM kernels' parity cases: (B, H, Hk, Sq, Sk, hd, causal, window) from
+# test_kernels.py's sweep, ragged lengths, and the LM prefill's shape
+ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, 0),
+              (2, 8, 8, 128, 128, 128, True, 0),
+              (1, 2, 1, 256, 256, 64, False, 0),
+              (1, 4, 4, 256, 256, 64, True, 64),
+              (2, 16, 4, 128, 128, 64, True, 0),
+              (2, 4, 2, 33, 33, 128, True, 0),
+              (1, 8, 2, 200, 200, 128, True, 0),
+              (1, 4, 2, 40, 9, 32, False, 4)]
+ATTN_LM = (4, 32, 8, 512, 512, 128, True, 0)
+ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
+SSM_CASES = [(4, 512, 8192, 16), (2, 33, 200, 16), (3, 1, 8, 5),
+             (1, 200, 40, 8)]
 
 
 def log(msg: str) -> None:
@@ -135,8 +184,8 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return _events_ms(graph.replay, replays) / calls
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -185,6 +234,30 @@ def sample_work(n: int, cap: int) -> tuple:
     return 2.0 * n * levels, 8 * n * levels + 8 + 8 * n + 8 * n
 
 
+def attention_work(B, H, Hk, Sq, Sk, hd, causal, window, elt) -> tuple:
+    """FLOPs and bytes of one ``flash_attention`` call: 2 x hd for q.k and
+    2 x hd for p.v per visible (query, key) pair (the pairs these lengths
+    and masks leave), q, k and v read once and o written once."""
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    visible = np.ones((Sq, Sk), bool)
+    if causal:
+        visible &= kp <= qp
+    if window > 0:
+        visible &= kp > qp - window
+    flops = 4.0 * hd * B * H * int(visible.sum())
+    return flops, elt * hd * (2 * B * H * Sq + 2 * B * Hk * Sk)
+
+
+def ssm_work(B, S, D, N) -> tuple:
+    """The same for one ``ssm_scan`` call: per (b, t, d, n) one product for
+    dt * a, the exponential, two products and a sum for h, a product and a
+    sum for y; per (b, t, d) dt * x; dt, x and y, B and C, A and the final
+    state each once, in float32."""
+    flops = B * S * D * (7.0 * N + 1)
+    return flops, 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N)
+
+
 def main() -> None:
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -202,9 +275,14 @@ def main() -> None:
     from repro_torch.core import search as search_mod
     from repro_torch.core.search import (SearchConfig, run_search,
                                          run_search_cells)
-    from repro_torch.kernels import (actor_moe, build, ops, policy_mlp,
-                                     screen_score, sumtree, sumtree_sample)
-    from repro_torch.launch import dse
+    from repro_torch.kernels import (actor_moe, build, flash_attention, ops,
+                                     policy_mlp, screen_score, ssm_scan,
+                                     sumtree, sumtree_sample)
+    from repro_torch.launch import dse, serve
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
     from repro_torch.optim.adam import tree_leaves
     from repro_torch.ppa import analytic as an
     from repro_torch.ppa import config_space as cs
@@ -451,21 +529,73 @@ def main() -> None:
         fail("mpc.plan on the card picks other candidates than on the CPU")
     log(f"parity mpc.plan: card == CPU for {N_ENVS} states x "
         f"{mpc.K_CANDIDATES} candidates")
+    # flash_attention against its plain version: the reference's sweep and
+    # ragged lengths in fp32 and bf16, the LM prefill's shape in fp16
+    # (Llama), bf16 (Jamba) and fp32
+    cases = [(c, dt) for c in ATTN_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(ATTN_LM, dt) for dt in (torch.float16, torch.bfloat16,
+                                       torch.float32)]
+    for (B, H, Hk, Sq, Sk, hd, causal, window), dt in cases:
+        q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        with torch.no_grad():
+            got = flash_attention.flash_attention_cuda(
+                q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"parity flash_attention B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} "
+            f"hd={hd} causal={causal} window={window} {str(dt)[6:]}: max "
+            f"abs err {err:.3e}")
+        if got.dtype != dt or not err < ATTN_TOL[dt]:
+            fail(f"flash_attention {(B, H, Hk, Sq, Sk, hd, causal, window)} "
+                 f"{dt} disagrees with the plain version (max abs err "
+                 f"{err:.3e})")
+    for B, S, D, N in SSM_CASES:
+        ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
+               torch.randn((B, S, N), generator=gen, device=dev),
+               torch.randn((B, S, N), generator=gen, device=dev),
+               torch.randn((B, S, D), generator=gen, device=dev),
+               -torch.exp(0.5 * torch.randn((D, N), generator=gen,
+                                            device=dev)))
+        for h0 in (None, torch.randn((B, D, N), generator=gen, device=dev)):
+            with torch.no_grad():
+                got = ssm_scan.ssm_scan_cuda(*ins, h0)
+                torch.cuda.synchronize()
+                want = ssm_scan.ssm_scan_plain(*ins, h0)
+            for name, g_, w_ in zip(("y", "h_final"), got, want):
+                err = float((g_ - w_).abs().max())
+                errs["ssm_scan"] = max(errs["ssm_scan"], err)
+                log(f"parity ssm_scan B={B} S={S} D={D} N={N} h0="
+                    f"{h0 is not None} {name}: max abs err {err:.3e}")
+                if not torch.allclose(g_, w_, rtol=1e-4, atol=1e-4):
+                    fail(f"ssm_scan {(B, S, D, N)} {name} disagrees with "
+                         f"the plain version (max abs err {err:.3e})")
 
     # ---- 4. timing --------------------------------------------------------
     timings = {}
     nbytes = lambda tree: sum(t.numel() * 4 for t in tree_leaves(tree))
 
-    def timed(key, shape, kernel, plain, work, plain_in_graph=True):
+    def timed(key, shape, kernel, plain, work, plain_in_graph=True,
+              plain_calls=20, peak=PEAK_FP32_FLOPS, library=None):
         with torch.no_grad():
-            ms, call, plain_call = device_ms(kernel), call_ms(kernel), \
-                call_ms(plain)
-            plain_ms = device_ms(plain) if plain_in_graph else plain_call
-        bnd, by = bound_ms(*work)
-        timings[key] = (ms, plain_ms, bnd, by, call)
+            ms, call = device_ms(kernel), call_ms(kernel)
+            plain_call = call_ms(plain, n=200 if plain_calls == 20 else 10,
+                                 warm=20 if plain_calls == 20 else 2)
+            plain_ms = device_ms(plain, calls=plain_calls,
+                                 replays=200 // plain_calls) \
+                if plain_in_graph else plain_call
+            library_ms = None if library is None else device_ms(library)
+        bnd, by = bound_ms(*work, peak=peak)
+        timings[key] = (ms, plain_ms, bnd, by, call, library_ms)
         log(f"time {key[0]} {shape}: ms {ms:.5f} plain_ms {plain_ms:.5f} "
-            f"bound_us {1e3 * bnd:.4f} bound_by {by} | eager call_ms "
-            f"{call:.5f} plain_call_ms {plain_call:.5f}")
+            f"bound_us {1e3 * bnd:.4f} bound_by {by} library_ms "
+            f"{library_ms} | eager call_ms {call:.5f} plain_call_ms "
+            f"{plain_call:.5f}")
 
     for b in (64, 192):
         s = torch.randn((b, 52), generator=gen, device=dev)
@@ -508,6 +638,37 @@ def main() -> None:
               lambda: policy_mlp.fused_mlp_cuda(x, *mlp_ws[d_out]),
               lambda: policy_mlp.fused_mlp_plain(x, *mlp_ws[d_out]),
               mlp_work(b, d_out, 4))
+    # flash_attention at the Llama prefill's shape (fp16; bf16 for Jamba,
+    # fp32 for run c); the library yardstick is PyTorch's fused attention
+    # on the same inputs (never called by the port)
+    B, H, Hk, Sq, Sk, hd, causal, window = ATTN_LM
+    for dt, label in ((torch.float16, "a"), (torch.bfloat16, "b"),
+                      (torch.float32, "c")):
+        q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        timed(("flash_attention", label),
+              f"q [{B},{H},{Sq},{hd}] k/v [{B},{Hk},{Sk},{hd}] {str(dt)[6:]} "
+              "causal",
+              lambda: flash_attention.flash_attention_cuda(q, k, v),
+              lambda: flash_attention.flash_attention_plain(q, k, v),
+              attention_work(*ATTN_LM, q.element_size()),
+              peak=PEAK_FP32_FLOPS if dt == torch.float32
+              else PEAK_HALF_FLOPS,
+              library=lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    # ssm_scan at Jamba's prefill shape; the plain version is a loop of S
+    # steps (7 ops each), so its graph holds 2 calls and 10 are timed eager
+    B, S, D, N = SSM_CASES[0]
+    ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
+           torch.randn((B, S, N), generator=gen, device=dev),
+           torch.randn((B, S, N), generator=gen, device=dev),
+           torch.randn((B, S, D), generator=gen, device=dev),
+           -torch.exp(0.5 * torch.randn((D, N), generator=gen, device=dev)))
+    timed(("ssm_scan", "b"), f"[{B},{S},{D}] N={N} fp32",
+          lambda: ssm_scan.ssm_scan_cuda(*ins),
+          lambda: ssm_scan.ssm_scan_plain(*ins), ssm_work(B, S, D, N),
+          plain_calls=2)
 
     # ---- 5. the main path -------------------------------------------------
     results = []
@@ -537,8 +698,8 @@ def main() -> None:
         f"power {row['power_mw']:.3f} mW area {row['area_mm2']:.3f} mm2 "
         f"ppa_score {row['ppa_score']:.6f}")
     log(f"main path launches: {json.dumps(counts)}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SEARCH_KERNELS:
+        if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
     if res.best_metrics is None or not np.isfinite(res.best_metrics).all():
         fail("the search returned no finite best design")
@@ -573,6 +734,8 @@ def main() -> None:
     # learning on from the 5th dispatch and the gate open from the 6th
     from torch.profiler import ProfilerActivity, profile
     n_disp = 12
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
 
     def profiled(label, search):
         with profile(activities=[ProfilerActivity.CPU,
@@ -581,8 +744,6 @@ def main() -> None:
             r = search()
             torch.cuda.synchronize()
             wall_p = time.time() - t
-        dev_time = lambda e: getattr(e, "self_device_time_total",
-                                     getattr(e, "self_cuda_time_total", 0.0))
         # device-side events only (kernels, copies): the host ops that
         # launched them carry the same time again
         events = [e for e in prof.key_averages()
@@ -753,10 +914,146 @@ def main() -> None:
     log(f"kill/resume: resumed summaries (but wall_s) and frontiers == the "
         f"uninterrupted run's; frontier sizes {json.dumps(sizes)}")
 
-    # ---- 8. results -------------------------------------------------------
+    # ---- 8. LM serving -----------------------------------------------------
+    # each run through serve's own inputs + generate, the kernels' launches
+    # counted around it; then the same weights and prompts with the two
+    # kernels' plain versions put in their place (the package has no switch
+    # for that: the names the model calls are patched here).  Each path is
+    # warmed up first by a 2-token generation (cuBLAS and the allocator).
+    # A MoE router's top-k is discontinuous: a 1-ulp change in its input can
+    # flip a near-tie, and the flipped token's output (and, through the
+    # Mamba state and attention, every later position's) moves by far more
+    # than the kernels' rounding.  So the plain path's prefill routes each
+    # token to the experts the kernel path picked (gates recomputed from its
+    # own router), and the log counts the picks that would have differed.
+    lm_counts = {"flash_attention": 0, "ssm_scan": 0}
+    real_route = blocks_mod._route
+    for label, arch, changes, batch, prompt_len, gen_tokens, tol in LM_RUNS:
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        kinds = lm.decoder_kinds(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        params, prompts, ctx = serve.inputs(cfg, batch, prompt_len, SEED, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t_.numel() for t_ in tree_leaves(params))
+        log(f"lm {label}: {arch} {json.dumps(changes)} ({cfg.n_layers} "
+            f"layers: {kinds.count('attn')} attention, {kinds.count('mamba')}"
+            f" Mamba; {cfg.param_dtype}; {n_params / 1e9:.3f} B parameters, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB) made in "
+            f"{time.time() - t:.3f} s; batch {batch}, prompt {prompt_len}, "
+            f"{gen_tokens} tokens")
+        runs, routes, flips = {}, [], []
+
+        def recording_route(p, ht, top_k):
+            gv, idx = real_route(p, ht, top_k)
+            if ht.shape[0] != batch:          # the prefill's routes
+                routes.append(idx)
+            return gv, idx
+
+        def pinned_route(p, ht, top_k):
+            if ht.shape[0] == batch:          # decode: free
+                return real_route(p, ht, top_k)
+            idx = routes[len(flips)]
+            free = real_route(p, ht, top_k)[1]
+            flips.append(int((free.sort(-1).values != idx.sort(-1).values)
+                             .any(-1).sum()))
+            probs = torch.softmax(L.linear(p["router"], ht).float(), dim=-1)
+            gv = probs.gather(-1, idx)
+            return gv / torch.clamp_min(gv.sum(-1, keepdim=True), 1e-9), idx
+
+        for path in ("kernels", "plain"):
+            patches = [mock.patch.object(blocks_mod, "_route",
+                                         recording_route)]
+            if path == "plain":
+                patches = [
+                    mock.patch.object(attention_mod, "flash_attention",
+                                      flash_attention.flash_attention_plain),
+                    mock.patch.object(blocks_mod, "ssm_scan",
+                                      ssm_scan.ssm_scan_plain),
+                    mock.patch.object(blocks_mod, "_route", pinned_route)]
+            for p_ in patches:
+                p_.start()
+            try:
+                serve.generate(params, cfg, prompts, 2, ctx)    # warm-up
+                routes_warm, flips[:] = list(routes), []
+                routes[:] = [] if path == "kernels" else routes_warm
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                g = serve.generate(params, cfg, prompts, gen_tokens, ctx)
+                torch.cuda.synchronize()
+                counts_lm = ops.launch_counts()
+            finally:
+                for p_ in patches:
+                    p_.stop()
+            runs[path] = g
+            finite = bool(torch.isfinite(g.prefill_logits).all())
+            log(f"lm {label} {path}: prefill_ms {1e3 * g.t_prefill:.3f} "
+                f"decode_tok_s {g.tok_s:.3f} ({gen_tokens - 1} steps, "
+                f"{1e3 * g.t_decode / (gen_tokens - 1):.3f} ms each) "
+                f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+                f"logits finite {finite}; launches "
+                f"flash_attention {counts_lm['flash_attention']} ssm_scan "
+                f"{counts_lm['ssm_scan']}")
+            if not finite:
+                fail(f"lm {label} {path}: prefill logits are not finite")
+            want = dict(flash_attention=kinds.count("attn"),
+                        ssm_scan=kinds.count("mamba"))
+            if path == "plain":
+                want = dict(flash_attention=0, ssm_scan=0)
+            else:
+                for name in lm_counts:
+                    lm_counts[name] += counts_lm[name]
+            for name, n in want.items():
+                if counts_lm[name] != n:
+                    fail(f"lm {label} {path}: {name} launched "
+                         f"{counts_lm[name]} times, not {n}")
+        a_, b_ = (runs[p_].prefill_logits.float() for p_ in ("kernels",
+                                                              "plain"))
+        scale = float(b_.abs().max())
+        err = float((a_ - b_).abs().max())
+        same = float((runs["kernels"].tokens == runs["plain"].tokens).mean())
+        log(f"lm {label} check: prefill logits max abs err {err:.4e} of max "
+            f"|logit| {scale:.4f} (share {err / scale:.3e}, tolerance {tol});"
+            f" greedy tokens agree {same:.4f}; tokens "
+            f"{runs['kernels'].tokens.shape}; prefill router calls pinned "
+            f"{len(flips)}, tokens whose free pick would differ {flips}")
+        if not err <= tol * scale:
+            fail(f"lm {label}: prefill logits through the kernels differ "
+                 "from the plain versions'")
+        if cfg.param_dtype == "float32" and same != 1.0:
+            fail(f"lm {label}: greedy tokens through the kernels differ "
+                 "from the plain versions'")
+        # where a short generation's time goes: the prefill and 8 decode
+        # steps through the kernels under torch.profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            serve.generate(params, cfg, prompts, 9, ctx)
+            torch.cuda.synchronize()
+            wall_p = time.time() - t
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and dev_time(e) > 0]
+        busy_ms = sum(dev_time(e) for e in events) / 1e3
+        log(f"lm {label} profile: prefill + 8 decode steps, wall "
+            f"{1e3 * wall_p:.3f} ms, device busy {busy_ms:.3f} ms, idle "
+            f"share {1 - busy_ms / (1e3 * wall_p):.4f}, "
+            f"{sum(e.count for e in events)} device ops")
+        for e in sorted(events, key=dev_time, reverse=True)[:8]:
+            log(f"lm {label} profile:   {dev_time(e) / 1e3:10.3f} ms  "
+                f"x{e.count:<6d} {e.key[:90]}")
+        del params, prompts, ctx, runs, g, a_, b_
+    for name in lm_counts:
+        if lm_counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the LM path")
+
+    # ---- 9. results -------------------------------------------------------
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
-    # batch's (B = 448; 256 samples per SAC update) with the campaign's
+    # batch's (B = 448; 256 samples per SAC update) with the campaign's;
+    # flash_attention at LM run a's shape and ssm_scan at run b's, with the
+    # LM phase's launches (runs a-c)
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, replaces, key, shape, path_counts in (
@@ -770,15 +1067,19 @@ def main() -> None:
             ("sumtree_sample", "src/repro/core/replay.py:120", 256,
              f"N=256,cap={SUMTREE_CAP}", camp_counts),
             ("fused_mlp", "src/repro/kernels/policy_mlp.py:60", 448,
-             "[448,82]->3", camp_counts)):
-        ms, plain, bnd, by, call = timings[(name, key)]
+             "[448,82]->3", camp_counts),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:91",
+             "a", "q[4,32,512,128],kv[4,8,512,128],fp16,causal", lm_counts),
+            ("ssm_scan", "src/repro/kernels/ssm_scan.py:66", "b",
+             "[4,512,8192],N=16,fp32", lm_counts)):
+        ms, plain, bnd, by, call, library_ms = timings[(name, key)]
         source = src + ("policy_mlp.cu" if name == "fused_mlp"
                         else name + ".cu")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             shape=shape, launches=path_counts[name], max_abs_err=errs[name],
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            library_ms=None, call_ms=call))
+            library_ms=library_ms, call_ms=call))
     print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

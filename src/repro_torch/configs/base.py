@@ -219,9 +219,9 @@ class ArchConfig:
 
 # ----------------------------------------------------------------------------
 ARCH_IDS = (
-    # the paper's own workloads (the rest of the reference zoo is not
-    # ported yet):
-    "llama3.1-8b", "smolvlm",
+    # the paper's own workloads, and the zoo's one hybrid Mamba model (the
+    # rest of the reference zoo is not ported yet):
+    "llama3.1-8b", "smolvlm", "jamba-v0.1-52b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -35,6 +35,22 @@ def tree_to_torch(tree, device="cpu"):
     return torch.as_tensor(arr.copy(), device=device)
 
 
+def lm_params(tree, device="cpu"):
+    """The reference's ``lm.init_params`` tree (numpy leaves, as
+    ``jax.tree_util.tree_map(np.asarray, ...)`` gives them) -> the port's,
+    each leaf keeping its dtype.  A jax bfloat16 array comes out of
+    ``np.asarray`` as an ``ml_dtypes`` bfloat16 array (dtype kind ``'V'``),
+    which torch does not take: its bits are carried across as uint16."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params(v, device) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
 def unflatten(flat: Mapping[str, np.ndarray], prefix: str = "") -> Dict:
     """Flat ``{a/.b/c: array}`` leaves under ``prefix`` -> nested dict
     ``{a: {b: {c: array}}}`` (the ``.`` of NamedTuple fields dropped)."""

@@ -36,6 +36,9 @@ SIGNATURES = {
     "sumtree_set_many": [_P, _P, _P, _D, _I, _L, _P],
     "sumtree_sample": [_P, _P, _P, _I, _L, _L, _P],
     "fused_mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
+    "flash_attention_forward": [_P] * 4 + [_I] * 6 + [_L] * 12
+    + [_I, _I, _D, _I, _P],
+    "ssm_scan_forward": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

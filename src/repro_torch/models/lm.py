@@ -1,0 +1,261 @@
+"""Language-model assembly (port of ``repro.models.lm``) for the ported
+zoo: dense GQA models (Llama 3.1 8B), prefix VLMs (SmolVLM) and the
+Mamba/attention hybrid with MoE (Jamba v0.1).
+
+Depth is (n_periods x period), as in the reference: ``period`` is the
+smallest repeating block pattern (dense: 1; Jamba: 8 = 1 attn + 7 mamba),
+and each position-in-period's parameters are stacked over the periods.
+The reference's ``lax.scan`` over periods is a loop over the period index.
+
+Entry points:
+  init_params(cfg, seed, device)                    -> params
+  forward(params, cfg, tokens, ctx=None)            -> logits
+  prefill(params, cfg, tokens, ctx=None)            -> (last_logits, caches)
+  init_caches(cfg, batch, cache_len, device)        -> caches
+  extend_caches(caches, cfg, new_len)               -> decode caches
+  flush_tails(caches, cfg)                          -> caches
+  decode_step(params, cfg, token, caches, pos)      -> (logits, caches)
+
+Training (``loss_fn``), MLA, cross-attention, the Whisper encoder and the
+xLSTM blocks are not ported yet; :func:`check_supported` names what a
+config would need of them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks as blk
+from repro_torch.models import layers as L
+
+
+# --------------------------------------------------------------- structure
+def decoder_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    if cfg.is_encdec:
+        return ("xattn",) * cfg.n_layers
+    return cfg.layer_kinds()
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise, naming them, if the config needs parts the port lacks."""
+    missing = sorted(set(decoder_kinds(cfg)) - {"attn", "mamba"})
+    if cfg.mla is not None:
+        missing.append("MLA")
+    if cfg.is_encdec:
+        missing.append("the Whisper encoder")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's LM has no {', '.join(missing)} yet "
+            "(ported: attention (GQA, sliding windows), Mamba, dense and "
+            "MoE FFNs)")
+
+
+def period_of(cfg: ArchConfig) -> int:
+    if cfg.is_encdec:
+        return 1
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        p = cfg.xlstm.slstm_every
+    elif cfg.attn_period > 0:
+        p = cfg.attn_period
+    elif cfg.cross_attn_every > 0:
+        p = cfg.cross_attn_every
+    else:
+        p = 1
+    if cfg.moe is not None and cfg.moe.every > 1:
+        p = p * cfg.moe.every // math.gcd(p, cfg.moe.every)
+    return p if cfg.n_layers % p == 0 else cfg.n_layers
+
+
+def _layout(cfg: ArchConfig) -> Tuple[int, int, List[Tuple[str, bool]]]:
+    check_supported(cfg)
+    kinds = decoder_kinds(cfg)
+    p = period_of(cfg)
+    n_periods = cfg.n_layers // p
+    slots = [(kinds[j], cfg.moe_on_layer(j)) for j in range(p)]
+    for i in range(cfg.n_layers):   # the pattern really repeats
+        assert kinds[i] == slots[i % p][0], (cfg.name, i)
+        assert cfg.moe_on_layer(i) == slots[i % p][1], (cfg.name, i)
+    return p, n_periods, slots
+
+
+def _period(tree, i: int):
+    """Period i's slice of a tree whose leaves are stacked over periods."""
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _restack(stacked: Dict, views: List[Dict], new: List[Dict]) -> Dict:
+    """Stack per-period cache dicts back over periods; a leaf every period
+    returned unchanged (the very view it was given) keeps its stack."""
+    return {k: stacked[k] if all(n[k] is v[k] for n, v in zip(new, views))
+            else torch.stack([n[k] for n in new]) for k in new[0]}
+
+
+# ------------------------------------------------------------------- init
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
+    """Random parameters from a seeded generator on ``device``, each slot's
+    leaves stacked over the periods (the reference's layout and keys; the
+    numbers differ, since torch's generator is not jax.random)."""
+    dev = device_mod.resolve(device)
+    dt = L.dtype_of(cfg.param_dtype)
+    _, n_periods, slots = _layout(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict = dict(embed=L.embed_init(gen, cfg.vocab, cfg.d_model, dt))
+    params["blocks"] = {
+        f"p{j}": blk.block_init(gen, cfg, kind, moe_on, lead=(n_periods,))
+        for j, (kind, moe_on) in enumerate(slots)}
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab, dt)
+    return params
+
+
+def _embed_inputs(params, cfg, tokens, ctx):
+    x = L.embed(params["embed"], tokens)
+    if cfg.family == "vlm" and cfg.cross_attn_every == 0 and ctx is not None:
+        # prefix-VLM (SmolVLM): image embeddings replace the first positions
+        n = min(cfg.n_context_tokens, ctx.shape[1], x.shape[1])
+        x = torch.cat([ctx[:, :n].to(x.dtype), x[:, n:]], dim=1)
+    return x
+
+
+def _head(params, cfg, x):
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["w"].T
+    return L.linear(params["lm_head"], x)
+
+
+# ------------------------------------------------------------------ forward
+def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            ctx: Optional[torch.Tensor] = None, *,
+            collect_caches: bool = False):
+    """tokens [B,S] -> logits [B,S,V] (+ caches stacked over periods when
+    collecting)."""
+    _, n_periods, slots = _layout(cfg)
+    dt = L.dtype_of(cfg.param_dtype)
+    x = _embed_inputs(params, cfg, tokens, ctx)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    per_period = []
+    for i in range(n_periods):
+        caches = {}
+        for j, (kind, moe_on) in enumerate(slots):
+            x, c = blk.block_apply(_period(params["blocks"][f"p{j}"], i), cfg,
+                                   kind, moe_on, x, positions=positions,
+                                   collect_cache=collect_caches)
+            caches[f"p{j}"] = c
+        x = x.to(dt)
+        per_period.append(caches)
+    logits = _head(params, cfg, x)
+    if not collect_caches:
+        return logits
+    caches = {pj: {k: torch.stack([c[pj][k] for c in per_period])
+                   for k in per_period[0][pj]} for pj in per_period[0]}
+    return logits, caches
+
+
+def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            ctx: Optional[torch.Tensor] = None):
+    """Run the prompt; returns (last-token logits, caches at prompt
+    length).  The full [B,S,V] logits are computed, as in the reference."""
+    logits, caches = forward(params, cfg, tokens, ctx, collect_caches=True)
+    return logits[:, -1:], caches
+
+
+# ------------------------------------------------------------------- decode
+def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
+                device="cuda") -> Dict:
+    dev = device_mod.resolve(device)
+    dt = L.dtype_of(cfg.param_dtype)
+    _, n_periods, slots = _layout(cfg)
+    return {f"p{j}": {k: v.expand((n_periods,) + v.shape).contiguous()
+                      for k, v in blk.init_cache(cfg, kind, batch, cache_len,
+                                                 dt, dev).items()}
+            for j, (kind, _) in enumerate(slots)}
+
+
+_SEQ_CACHE_KEYS = ("k", "v")
+
+
+def extend_caches(caches: Dict, cfg: ArchConfig, new_len: int) -> Dict:
+    """Prepare prefill caches for decoding: pad the sequence-indexed prefix
+    to ``new_len`` (for sliding-window archs keep the last W), attach empty
+    ring tails and set plen to the prompt length (the two-tier decode
+    cache of ``repro_torch.models.blocks``).  Leaves are [n_periods, B, S,
+    ...]: the sequence axis is 2."""
+    out = {}
+    for pj, c in caches.items():
+        nc = dict(c)
+        if "k" in c:   # an attention cache: pad, add tails and plen
+            prompt_len = c["k"].shape[2]
+            cap = min(new_len, cfg.sliding_window) if cfg.sliding_window \
+                else new_len
+            for name in _SEQ_CACHE_KEYS:
+                arr = c[name]
+                pad = cap - arr.shape[2]
+                if pad > 0:
+                    arr = torch.cat([arr, arr.new_zeros(
+                        arr.shape[:2] + (pad,) + arr.shape[3:])], dim=2)
+                elif pad < 0:
+                    arr = arr[:, :, arr.shape[2] - cap:]   # SWA: keep last W
+                nc[name] = arr
+                nc[name + "_tail"] = arr.new_zeros(
+                    arr.shape[:2] + (blk.KV_TAIL,) + arr.shape[3:])
+            nc["plen"] = torch.full((c["k"].shape[0],), prompt_len,
+                                    dtype=torch.int32, device=c["k"].device)
+        out[pj] = nc
+    return out
+
+
+def flush_tails(caches: Dict, cfg: ArchConfig) -> Dict:
+    """Merge the full ring tails into the prefix at plen % S and advance
+    plen by ``KV_TAIL``.  The serving loop calls this every KV_TAIL decode
+    steps.  The write start is clamped so that the tail fits, as
+    ``lax.dynamic_update_slice`` does (a prefix capacity that is a multiple
+    of KV_TAIL never needs it)."""
+    out = {}
+    for pj, c in caches.items():
+        if "plen" not in c:
+            out[pj] = c
+            continue
+        nc = dict(c)
+        for name in _SEQ_CACHE_KEYS:
+            pre, tail = c[name], c[name + "_tail"]
+            S, n = pre.shape[2], tail.shape[2]
+            start = torch.clamp(c["plen"].long() % S, 0, S - n)   # [n_per]
+            idx = start[:, None] + torch.arange(n, device=pre.device)
+            idx = idx.view(idx.shape[0], 1, n, *([1] * (pre.dim() - 3)))
+            nc[name] = pre.scatter(2, idx.expand_as(tail),
+                                   tail.to(pre.dtype))
+        nc["plen"] = c["plen"] + blk.KV_TAIL
+        out[pj] = nc
+    return out
+
+
+def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
+                caches: Dict, pos: int):
+    """token [B,1] int; caches from :func:`extend_caches` (or
+    :func:`init_caches`); pos = the current length.  Returns (logits
+    [B,1,V], new caches); the given caches are not modified."""
+    _, n_periods, slots = _layout(cfg)
+    dt = L.dtype_of(cfg.param_dtype)
+    x = L.embed(params["embed"], token)
+    views = [_period(caches, i) for i in range(n_periods)]
+    new = []
+    for i in range(n_periods):
+        nc = {}
+        for j, (kind, moe_on) in enumerate(slots):
+            x, nc[f"p{j}"] = blk.block_decode(
+                _period(params["blocks"][f"p{j}"], i), cfg, kind, moe_on, x,
+                views[i][f"p{j}"], pos)
+        x = x.to(dt)
+        new.append(nc)
+    caches = {pj: _restack(caches[pj], [v[pj] for v in views],
+                           [n[pj] for n in new]) for pj in caches}
+    return _head(params, cfg, x), caches

@@ -2,7 +2,9 @@
 at the main path's shapes and ragged ones, the device PER on the card
 against the same buffer on the CPU, the batched env step on the card
 against the CPU, the search's determinism guarantees on the card, and a
-short campaign that launches every kernel and resumes bit-for-bit.
+short campaign that launches every search kernel and resumes
+bit-for-bit, and the LM kernels (``flash_attention``, ``ssm_scan``) and
+reduced LM generation on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -22,14 +24,20 @@ from repro_torch.core import world_model as wm
 from repro_torch.core.networks import to_device
 from repro_torch.core.env import VecDSEEnv
 from repro_torch.core.search import SearchConfig, run_search
-from repro_torch.kernels import (actor_moe, ops, policy_mlp, screen_score,
-                                  sumtree, sumtree_sample)
+from repro_torch.kernels import (actor_moe, flash_attention, ops,
+                                  policy_mlp, screen_score, ssm_scan, sumtree,
+                                  sumtree_sample)
+from repro_torch.configs import get_reduced
+from repro_torch.launch.serve import generate
+from repro_torch.models import lm
 from repro_torch.ppa import analytic as an
 from repro_torch.ppa import surrogate as sur
 from repro_torch.workload.extract import extract
 
 # fp32 with sums in another order than the plain version's
 RTOL, ATOL = 1e-4, 1e-5
+SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
+                  "fused_mlp")
 
 pytestmark = pytest.mark.cuda
 
@@ -300,7 +308,7 @@ def test_campaign_on_card_launches_every_kernel_and_resumes_bitwise(
     ops.reset_launch_counts()
     ref = run_campaign(str(tmp_path / "ref"), spec, progress=lambda m: None)
     counts = ops.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in SEARCH_KERNELS), counts
     real_save = search_mod._save_search_ckpt
 
     def killing_save(*args, **kw):
@@ -325,3 +333,130 @@ def test_campaign_on_card_launches_every_kernel_and_resumes_bitwise(
             np.testing.assert_array_equal(np.sort(fa[k]), np.sort(fb[k]))
     assert os.path.isfile(os.path.join(root, "report", "cells.json"))
     assert isinstance(CampaignStore.open(root), CampaignStore)
+
+
+# ------------------------------------------------------------- LM kernels
+# test_kernels.py's tolerances: fp32 with another order of sums, and the
+# rounding of a half-precision output
+ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd,causal,window", [
+    (1, 4, 2, 256, 256, 64, True, 0), (2, 8, 8, 128, 128, 128, True, 0),
+    (1, 2, 1, 256, 256, 64, False, 0), (1, 4, 4, 256, 256, 64, True, 64),
+    (2, 16, 4, 128, 128, 64, True, 0),
+    (2, 4, 2, 33, 33, 128, True, 0), (1, 8, 2, 200, 200, 128, True, 0),
+    (2, 4, 2, 200, 200, 16, False, 16), (1, 4, 1, 7, 40, 64, False, 0),
+    (1, 4, 2, 40, 9, 32, False, 4), (1, 4, 4, 1, 1, 96, True, 0)])
+def test_flash_attention_kernel_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
+                                              causal, window, dtype):
+    g = _gen(dev, Sq * 7 + hd)
+    q = torch.randn((B, H, Sq, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Hk, Sk, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hk, Sk, hd), generator=g, device=dev).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    assert torch.equal(got, flash_attention.flash_attention(
+        q, k, v, causal=causal, window=window))          # deterministic
+
+
+def test_flash_attention_kernel_reads_strided_views(dev):
+    """The model passes its [B,S,H,hd] projections transposed, without a
+    copy; the output keeps q's layout."""
+    g = _gen(dev, 3)
+    q = torch.randn((2, 50, 8, 64), generator=g, device=dev).half()
+    kv = torch.randn((2, 50, 2, 2, 64), generator=g, device=dev).half()
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    got = flash_attention.flash_attention(q.transpose(1, 2), k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention.flash_attention_plain(q.transpose(1, 2), k, v)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("B,S,D,N", [(1, 128, 64, 8), (2, 256, 128, 16),
+                                     (1, 64, 32, 4), (2, 33, 200, 16),
+                                     (3, 1, 8, 5), (4, 512, 1024, 16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_kernel_matches_plain(dev, B, S, D, N, with_h0):
+    g = _gen(dev, S + D + N)
+    dt = torch.rand((B, S, D), generator=g, device=dev) * 0.1 + 1e-3
+    b_in = torch.randn((B, S, N), generator=g, device=dev)
+    c_in = torch.randn((B, S, N), generator=g, device=dev)
+    x = torch.randn((B, S, D), generator=g, device=dev)
+    a = -torch.exp(torch.randn((D, N), generator=g, device=dev) * 0.5)
+    h0 = torch.randn((B, D, N), generator=g, device=dev) if with_h0 \
+        else None
+    before = ssm_scan.launches
+    y, h = ssm_scan.ssm_scan(dt, b_in, c_in, x, a, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan.ssm_scan_plain(dt, b_in, c_in, x, a, h0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    y2, h2 = ssm_scan.ssm_scan(dt, b_in, c_in, x, a, h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_lm_wrappers_check_their_inputs(dev):
+    q = torch.zeros((1, 4, 8, 160), device=dev)
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_attention.flash_attention(q, q[:, :2], q[:, :2])      # hd
+    q = torch.zeros((1, 4, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_attention.flash_attention(q, q[:, :3], q[:, :3])      # H % Hk
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_attention.flash_attention(q, q.double(), q.double())
+    x = torch.zeros((1, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="ssm_scan"):
+        ssm_scan.ssm_scan(x, torch.zeros((1, 8, 17), device=dev),
+                          torch.zeros((1, 8, 17), device=dev), x,
+                          torch.zeros((16, 17), device=dev))        # N > 16
+    with pytest.raises(ValueError, match="ssm_scan"):
+        ssm_scan.ssm_scan(x, x[..., :4], x[..., :4], x,
+                          torch.zeros((16, 4), device=dev))  # strided B/C
+
+
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "jamba-v0.1-52b",
+                                  "smolvlm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_generation_on_card_matches_cpu(dev, arch, dtype):
+    """Reduced models, the same weights on both: the card's prefill goes
+    through the kernels (counted), the CPU's through their plain versions.
+    float32: logits within 1e-4 of max |logit| and the same 72 greedy
+    tokens (one tail flush); bf16: the prefill logits within 5e-2."""
+    import dataclasses
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype=dtype)
+    params = lm.init_params(cfg, seed=1, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=g)
+    ctx = None
+    if cfg.n_context_tokens:
+        ctx = (torch.randn((2, cfg.n_context_tokens, cfg.d_model),
+                           generator=g) * 0.1).to(params["embed"]["w"].dtype)
+    n = 72 if dtype == "float32" else 8
+    want = generate(params, cfg, prompts, n, ctx)
+    ops.reset_launch_counts()
+    got = generate(to_device(params, dev), cfg, prompts.to(dev), n,
+                   None if ctx is None else ctx.to(dev))
+    counts = ops.launch_counts()
+    kinds = lm.decoder_kinds(cfg)
+    assert counts["flash_attention"] == kinds.count("attn")
+    assert counts["ssm_scan"] == kinds.count("mamba")
+    scale = float(want.prefill_logits.float().abs().max())
+    err = float((got.prefill_logits.cpu().float()
+                 - want.prefill_logits.float()).abs().max())
+    if dtype == "float32":
+        assert err <= 1e-4 * scale, (err, scale)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+    else:
+        assert err <= 5e-2 * scale, (err, scale)

@@ -33,7 +33,12 @@ PORTED = ("repro_torch.checkpoint.manager", "repro_torch.core.fsutil",
           "repro_torch.kernels.sumtree_sample",
           "repro_torch.kernels.policy_mlp", "repro_torch.campaign.planner",
           "repro_torch.campaign.store", "repro_torch.campaign.report",
-          "repro_torch.campaign.runner", "repro_torch.launch.dse")
+          "repro_torch.campaign.runner", "repro_torch.launch.dse",
+          "repro_torch.configs.jamba_v0_1_52b", "repro_torch.models.layers",
+          "repro_torch.models.attention", "repro_torch.models.blocks",
+          "repro_torch.models.lm", "repro_torch.launch.serve",
+          "repro_torch.kernels.flash_attention",
+          "repro_torch.kernels.ssm_scan")
 
 
 def test_port_imports_without_jax_or_reference():

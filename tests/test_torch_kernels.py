@@ -117,7 +117,8 @@ def test_cpu_tensors_take_the_plain_version():
                        ref.sumtree_sample_reference(got, u, 8))
     assert ops.launch_counts() == {"actor_moe": 0, "screen_score": 0,
                                    "sumtree": 0, "sumtree_sample": 0,
-                                   "fused_mlp": 0}
+                                   "fused_mlp": 0, "flash_attention": 0,
+                                   "ssm_scan": 0}
 
 
 def _mlp_weights(d_out, rng=RNG):

@@ -1,0 +1,132 @@
+"""The LM kernels' plain versions against the JAX reference: the Pallas
+kernels in interpret mode and their jnp oracles, over the reference's own
+sweeps (``test_kernels.py``), plus ragged lengths the Pallas kernels do not
+take (held against the oracles only).  The CUDA kernels are held against
+these plain versions on the card in test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.kernels import flash_attention, ops, ref, ssm_scan
+
+RNG = np.random.default_rng(7)
+SWEEP = [(1, 4, 2, 256, 64, True, 0), (2, 8, 8, 128, 128, True, 0),
+         (1, 2, 1, 256, 64, False, 0), (1, 4, 4, 256, 64, True, 64),
+         (2, 16, 4, 128, 64, True, 0)]
+# test_kernels.py's tolerances: fp32 with another order of sums, and the
+# rounding of a bf16 output
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _np(shape, dtype):
+    """Normal draws, rounded to ``dtype`` and returned as float32 numpy,
+    so both packages start from the same values."""
+    x = RNG.normal(0, 1, shape).astype(np.float32)
+    return np.array(jnp.asarray(x, dtype).astype(jnp.float32))
+
+
+def _both(arrs, dtype):
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return ([jnp.asarray(a, jd) for a in arrs],
+            [torch.as_tensor(a).to(td) for a in arrs])
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hk,S,hd,causal,window", SWEEP)
+def test_attention_plain_matches_pallas_and_oracle(B, H, Hk, S, hd, causal,
+                                                   window, dtype):
+    arrs = [_np((B, H, S, hd), dtype), _np((B, Hk, S, hd), dtype),
+            _np((B, Hk, S, hd), dtype)]
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    got = flash_attention.flash_attention(tq, tk, tv, causal=causal,
+                                          window=window).float().numpy()
+    pallas = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window, block_q=64, block_k=64)
+    oracle = ref_ref.attention_reference(jq, jk, jv, causal=causal,
+                                         window=window)
+    assert _err(got, pallas) < TOLS[dtype]
+    assert _err(got, oracle) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (33, 33, True, 0), (200, 200, True, 0), (200, 200, False, 16),
+    (12, 12, True, 8), (7, 40, False, 0),
+    # a window with Sq > Sk: the last rows see no key, so they average all
+    # of them (every score at -1e30), as the oracle does
+    (40, 9, False, 4)])
+def test_attention_plain_matches_oracle_at_ragged_lengths(Sq, Sk, causal,
+                                                          window, dtype):
+    arrs = [_np((2, 4, Sq, 16), dtype), _np((2, 2, Sk, 16), dtype),
+            _np((2, 2, Sk, 16), dtype)]
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    got = ref.attention_reference(tq, tk, tv, causal=causal, window=window)
+    want = ref_ref.attention_reference(jq, jk, jv, causal=causal,
+                                       window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert _err(got.float(), want) < TOLS[dtype]
+
+
+def _ssm_inputs(B, S, D, N):
+    dt = RNG.uniform(1e-3, 0.1, (B, S, D)).astype(np.float32)
+    b_in = RNG.normal(0, 1, (B, S, N)).astype(np.float32)
+    c_in = RNG.normal(0, 1, (B, S, N)).astype(np.float32)
+    x = RNG.normal(0, 1, (B, S, D)).astype(np.float32)
+    a = -np.exp(RNG.normal(0, 1, (D, N)).astype(np.float32) * 0.5)
+    return dt, b_in, c_in, x, a
+
+
+@pytest.mark.parametrize("B,S,D,N,bd,ch", [
+    (1, 128, 64, 8, 32, 64), (2, 256, 128, 16, 64, 128),
+    (1, 64, 32, 4, 32, 32)])
+def test_ssm_plain_matches_pallas_and_oracle(B, S, D, N, bd, ch):
+    arrs = _ssm_inputs(B, S, D, N)
+    y, h = ssm_scan.ssm_scan(*(torch.as_tensor(a) for a in arrs))
+    pallas = ref_ops.ssm_scan(*(jnp.asarray(a) for a in arrs), block_d=bd,
+                              chunk=ch)
+    want_y, want_h = ref_ref.ssm_scan_reference(*(jnp.asarray(a)
+                                                  for a in arrs))
+    for g, w in ((y, pallas), (y, want_y), (h, want_h)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 33, 24, 16), (1, 200, 40, 8),
+                                     (3, 1, 8, 5)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_plain_matches_oracle_at_ragged_lengths(B, S, D, N, with_h0):
+    arrs = list(_ssm_inputs(B, S, D, N))
+    if with_h0:
+        arrs.append(RNG.normal(0, 1, (B, D, N)).astype(np.float32))
+    y, h = ref.ssm_scan_reference(*(torch.as_tensor(a) for a in arrs))
+    want_y, want_h = ref_ref.ssm_scan_reference(*(jnp.asarray(a)
+                                                  for a in arrs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """A CPU tensor never reaches the CUDA library: each wrapper returns its
+    plain result bit for bit and counts no launch."""
+    ops.reset_launch_counts()
+    q, k, v = (torch.as_tensor(_np(s, "float32")) for s in
+               ((1, 4, 9, 16), (1, 2, 9, 16), (1, 2, 9, 16)))
+    assert torch.equal(flash_attention.flash_attention(q, k, v, window=3),
+                       flash_attention.flash_attention_plain(q, k, v,
+                                                             window=3))
+    arrs = [torch.as_tensor(a) for a in _ssm_inputs(1, 9, 8, 4)]
+    for g, w in zip(ssm_scan.ssm_scan(*arrs), ssm_scan.ssm_scan_plain(*arrs)):
+        assert torch.equal(g, w)
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["ssm_scan"] == 0

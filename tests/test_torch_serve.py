@@ -1,0 +1,67 @@
+"""The port's serving CLI, ``python -m repro_torch.launch.serve``: it runs
+on the CPU when asked, raises for a card that is not there, and refuses
+what is not ported (``--recommend``)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "jamba-v0.1-52b",
+                                  "smolvlm"])
+def test_serve_cli_runs_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--reduced", "--batch", "2", "--prompt-len", "6", "--gen", "4",
+         "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"[serve] {arch}: prefill 6 tok x2" in out.stdout
+    assert "tok/s (batch=2, cpu)" in out.stdout
+
+
+def test_serve_returns_greedy_tokens_and_launches_no_kernel_on_the_cpu():
+    ops.reset_launch_counts()
+    tokens, tok_s = serve.serve("jamba-v0.1-52b", batch=2, prompt_len=5,
+                                gen_tokens=3, device="cpu")
+    assert tokens.shape == (2, 3) and tokens.dtype == np.int32
+    assert ((tokens >= 0) & (tokens < 256)).all()
+    assert np.isfinite(tok_s) and tok_s > 0
+    assert set(ops.launch_counts().values()) == {0}
+    again, _ = serve.serve("jamba-v0.1-52b", batch=2, prompt_len=5,
+                           gen_tokens=3, device="cpu")
+    np.testing.assert_array_equal(tokens, again)   # seeded
+
+
+def test_serve_inputs_come_from_separate_streams():
+    cfg = serve.get_reduced("smolvlm")
+    params, prompts, ctx = serve.inputs(cfg, 2, 8, 0, "cpu")
+    assert prompts.shape == (2, 8) and ctx.shape == (2, 8, 64)
+    assert ctx.dtype == torch.bfloat16
+    # no draw repeats another's noise
+    emb = params["embed"]["w"].float().flatten()[:16] / 0.02
+    assert not torch.allclose(emb, ctx.float().flatten()[:16] / 0.1,
+                              atol=1e-2)
+
+
+def test_serve_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "llama3.1-8b", "--reduced", "--device",
+                    "cuda"])
+
+
+def test_serve_cli_refuses_recommend(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "smolvlm", "--recommend", "some/run"])
+    assert "unrecognized arguments: --recommend" in capsys.readouterr().err
