@@ -20,12 +20,13 @@ NEG_INF = -1e30
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B, Sq, H, hd]; k/v: [B, Sk, Hk, hd] (GQA: H % Hk == 0) ->
-    [B, Sq, H, hd].  window > 0 applies sliding-window masking.  The kernel
-    reads the transposed views in place and writes q's layout."""
+                      window: int = 0) -> torch.Tensor:
+    """Causal attention. q: [B, Sq, H, hd]; k/v: [B, Sk, Hk, hd] (GQA:
+    H % Hk == 0) -> [B, Sq, H, hd].  window > 0 applies sliding-window
+    masking.  The kernel reads the transposed views in place and writes q's
+    layout."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal, window=window)
+                        v.transpose(1, 2), causal=True, window=window)
     return o.transpose(1, 2).to(v.dtype)
 
 

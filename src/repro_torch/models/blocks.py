@@ -109,12 +109,22 @@ def _shared_expert(p: Dict, ht: torch.Tensor) -> torch.Tensor:
     return L.linear(p["s_down"], z)
 
 
+def _router_probs(p: Dict, ht: torch.Tensor) -> torch.Tensor:
+    """[T, E]: the router's softmax in float32."""
+    return torch.softmax(L.linear(p["router"], ht).float(), dim=-1)
+
+
+def _gates(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[T, k]: the chosen experts' probabilities renormalised over the k."""
+    gv = probs.gather(-1, idx)
+    return gv / torch.clamp_min(gv.sum(-1, keepdim=True), 1e-9)
+
+
 def _route(p: Dict, ht: torch.Tensor, top_k: int):
-    """Router softmax in float32, top-k, gates renormalised over the k."""
-    probs = torch.softmax(L.linear(p["router"], ht).float(), dim=-1)
-    gate_vals, idx = torch.topk(probs, top_k, dim=-1)      # descending
-    return gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
-                                       1e-9), idx
+    """Router softmax, top-k (descending), gates renormalised over the k."""
+    probs = _router_probs(p, ht)
+    idx = torch.topk(probs, top_k, dim=-1).indices
+    return _gates(probs, idx), idx
 
 
 def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -209,12 +219,11 @@ def _attn_qkv(p: Dict, cfg: ArchConfig, h: torch.Tensor, positions):
 
 
 def _attn_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, positions,
-                causal: bool, collect: bool):
+                collect: bool):
     B, S, _ = x.shape
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     q, k, v = _attn_qkv(p, cfg, h, positions)
-    o = attn.chunked_attention(q, k, v, causal=causal,
-                               window=cfg.sliding_window)
+    o = attn.chunked_attention(q, k, v, window=cfg.sliding_window)
     x = x + L.linear(p["wo"], o.reshape(B, S, -1))
     return x, (dict(k=k, v=v) if collect else None)
 
@@ -275,13 +284,12 @@ def _mamba_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
 # unified block API
 # ===========================================================================
 def block_apply(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
-                x: torch.Tensor, *, positions=None, causal: bool = True,
+                x: torch.Tensor, *, positions=None,
                 collect_cache: bool = False):
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if kind == "attn":
-        x, cache = _attn_apply(params, cfg, x, positions, causal,
-                               collect_cache)
+        x, cache = _attn_apply(params, cfg, x, positions, collect_cache)
     elif kind == "mamba":
         x, cache = _mamba_apply(params, cfg, x, collect_cache)
     else:
