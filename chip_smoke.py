@@ -21,16 +21,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      device PER's sampled indices and tree against the host ``SumTree`` on
      the same uniforms; the batched env step and
      the MPC rollouts on the card against the same on the CPU;
-     ``flash_attention`` over the reference's sweep, ragged lengths and the
-     LM prefill shapes (fp32 2e-5, fp16/bf16 2e-2); ``ssm_scan`` at Jamba's
+     ``flash_attention`` over the reference's sweep, ragged lengths, the
+     tensor-core kernel's edges (hd 40 and 80, 1,000 keys, causal with
+     Sq != Sk, a window with Sq > Sk, unaligned views) and the LM prefill
+     shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2);
+     ``ssm_scan`` at Jamba's
      prefill shape and ragged ones (rtol/atol 1e-4 on y and the final
      state);
   4. timing: device time of each kernel and of its plain version (200
      calls replayed from a CUDA graph, between CUDA events; the plain
      ``sumtree`` synchronises, so its eager time; the plain ``ssm_scan``,
      a loop of S steps, is 2 calls in a graph replayed 100 times and 10
-     eager calls), the eager call time with the host's work, the least time the card could take, and for ``flash_attention``
-     PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+     eager calls), the eager call time with the host's work, the least
+     time the card could take, and for ``flash_attention`` (the LM prefill
+     shape in fp16, bf16 and fp32, and sequence 2048 in fp16) PyTorch's
+     ``scaled_dot_product_attention`` on the same inputs;
   5. the single-search path: ``repro_torch.launch.dse.run`` on ``cuda``
      (Llama 3.1 8B decode, seq 2048, batch 3, high-performance mode, node
      3, 4,613 episodes, 64 envs, seed 0, gate threshold ``GATE_THRESHOLD``)
@@ -125,7 +130,10 @@ LM_RUNS = (
      32, 1e-4),
 )
 # the LM kernels' parity cases: (B, H, Hk, Sq, Sk, hd, causal, window) from
-# test_kernels.py's sweep, ragged lengths, and the LM prefill's shape
+# test_kernels.py's sweep, ragged lengths, the fp16/bf16 kernel's edges (hd
+# zero-padded to 64 and 128, several 64-key tiles with a ragged last one,
+# causal with Sq != Sk, a window across 64-key tiles with Sq > Sk), and the
+# LM prefill's shape
 ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, 0),
               (2, 8, 8, 128, 128, 128, True, 0),
               (1, 2, 1, 256, 256, 64, False, 0),
@@ -133,8 +141,16 @@ ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, 0),
               (2, 16, 4, 128, 128, 64, True, 0),
               (2, 4, 2, 33, 33, 128, True, 0),
               (1, 8, 2, 200, 200, 128, True, 0),
-              (1, 4, 2, 40, 9, 32, False, 4)]
+              (1, 4, 2, 40, 9, 32, False, 4),
+              (1, 4, 2, 100, 100, 40, True, 0),
+              (1, 4, 2, 150, 150, 80, True, 0),
+              (1, 4, 2, 1000, 1000, 128, True, 0),
+              (1, 4, 2, 300, 170, 64, True, 0),
+              (1, 4, 2, 70, 300, 128, True, 0),
+              (1, 4, 2, 200, 100, 64, False, 70),
+              (1, 4, 2, 200, 100, 80, True, 70)]
 ATTN_LM = (4, 32, 8, 512, 512, 128, True, 0)
+ATTN_2048 = (1, 32, 8, 2048, 2048, 128, True, 0)   # the paper's seq_len
 ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
 SSM_CASES = [(4, 512, 8192, 16), (2, 33, 200, 16), (3, 1, 8, 5),
              (1, 200, 40, 8)]
@@ -532,17 +548,20 @@ def main() -> None:
         fail("mpc.plan on the card picks other candidates than on the CPU")
     log(f"parity mpc.plan: card == CPU for {N_ENVS} states x "
         f"{mpc.K_CANDIDATES} candidates")
-    # flash_attention against its plain version: the reference's sweep and
-    # ragged lengths in fp32 and bf16, the LM prefill's shape in fp16
-    # (Llama), bf16 (Jamba) and fp32
-    cases = [(c, dt) for c in ATTN_CASES
-             for dt in (torch.float32, torch.bfloat16)]
-    cases += [(ATTN_LM, dt) for dt in (torch.float16, torch.bfloat16,
-                                       torch.float32)]
-    for (B, H, Hk, Sq, Sk, hd, causal, window), dt in cases:
-        q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+    # flash_attention against its plain version: the reference's sweep,
+    # ragged lengths, the edges and the LM prefill's shape in fp32, fp16
+    # and bf16 (fp16 and bf16 run the tensor-core kernel, fp32 the SIMT
+    # one); "unaligned": q, k and v are x[..., 1:65] of [..., 66] tensors,
+    # not 16-byte aligned, so loaded element by element
+    cases = [(c, dt, False) for c in ATTN_CASES + [ATTN_LM]
+             for dt in (torch.float32, torch.float16, torch.bfloat16)]
+    cases += [((2, 8, 2, 150, 150, 64, True, 0), dt, True)
+              for dt in (torch.float16, torch.bfloat16)]
+    for (B, H, Hk, Sq, Sk, hd, causal, window), dt, unaligned in cases:
+        pad = int(unaligned)
+        q, k, v = (torch.randn((B, n, S, hd + 2 * pad), generator=gen,
+                               device=dev).to(dt)[..., pad:pad + hd]
+                   for n, S in ((H, Sq), (Hk, Sk), (Hk, Sk)))
         with torch.no_grad():
             got = flash_attention.flash_attention_cuda(
                 q, k, v, causal=causal, window=window)
@@ -552,8 +571,8 @@ def main() -> None:
         err = float((got.float() - want.float()).abs().max())
         errs["flash_attention"] = max(errs["flash_attention"], err)
         log(f"parity flash_attention B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} "
-            f"hd={hd} causal={causal} window={window} {str(dt)[6:]}: max "
-            f"abs err {err:.3e}")
+            f"hd={hd} causal={causal} window={window} {str(dt)[6:]}"
+            f"{' unaligned' if unaligned else ''}: max abs err {err:.3e}")
         if got.dtype != dt or not err < ATTN_TOL[dt]:
             fail(f"flash_attention {(B, H, Hk, Sq, Sk, hd, causal, window)} "
                  f"{dt} disagrees with the plain version (max abs err "
@@ -642,11 +661,14 @@ def main() -> None:
               lambda: policy_mlp.fused_mlp_plain(x, *mlp_ws[d_out]),
               mlp_work(b, d_out, 4))
     # flash_attention at the Llama prefill's shape (fp16; bf16 for Jamba,
-    # fp32 for run c); the library yardstick is PyTorch's fused attention
-    # on the same inputs (never called by the port)
-    B, H, Hk, Sq, Sk, hd, causal, window = ATTN_LM
-    for dt, label in ((torch.float16, "a"), (torch.bfloat16, "b"),
-                      (torch.float32, "c")):
+    # fp32 for run c) and at the paper's sequence length in fp16; the
+    # library yardstick is PyTorch's fused attention on the same inputs
+    # (never called by the port)
+    for shape, dt, label in ((ATTN_LM, torch.float16, "a"),
+                             (ATTN_LM, torch.bfloat16, "b"),
+                             (ATTN_LM, torch.float32, "c"),
+                             (ATTN_2048, torch.float16, "2048")):
+        B, H, Hk, Sq, Sk, hd, causal, window = shape
         q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
@@ -656,7 +678,7 @@ def main() -> None:
               "causal",
               lambda: flash_attention.flash_attention_cuda(q, k, v),
               lambda: flash_attention.flash_attention_plain(q, k, v),
-              attention_work(*ATTN_LM, q.element_size()),
+              attention_work(*shape, q.element_size()),
               peak=PEAK_FP32_FLOPS if dt == torch.float32
               else PEAK_HALF_FLOPS,
               library=lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
@@ -1046,6 +1068,10 @@ def main() -> None:
         for e in sorted(events, key=dev_time, reverse=True)[:8]:
             log(f"lm {label} profile:   {dev_time(e) / 1e3:10.3f} ms  "
                 f"x{e.count:<6d} {e.key[:90]}")
+        for e in events:     # the port's own LM kernels, wherever they rank
+            if "flash_attention_kernel" in e.key or "ssm_scan_kernel" in e.key:
+                log(f"lm {label} profile: port kernel {dev_time(e) / 1e3:.3f}"
+                    f" ms x{e.count} {e.key[:90]}")
         del params, prompts, ctx, runs, g, a_, b_
     for name in lm_counts:
         if lm_counts[name] <= 0:

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("_build")
@@ -70,13 +70,17 @@ def _digest(flags: List[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def build(*, verbose: bool = False, force: bool = False) -> Path:
+def build(*, verbose: bool = False, force: bool = False,
+          defines: Sequence[str] = ()) -> Path:
     """Compile the kernels into ``_build/`` and return the library path.
 
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
-    kernel) and keeps the compiler output in :data:`last_build_log`."""
+    kernel) and keeps the compiler output in :data:`last_build_log`.
+    ``defines`` (``NAME=VALUE``) build a variant into a library of its own
+    (``scripts/flash_attention_bq.py`` times two tile sizes that way)."""
     global last_build_log
-    lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest(NVCC_FLAGS)}.so"
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest(flags)}.so"
     if lib_path.exists() and not force:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,7 +91,7 @@ def build(*, verbose: bool = False, force: bool = False) -> Path:
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [exe, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            cmd = [exe, *flags, *extra, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -113,16 +117,21 @@ def build(*, verbose: bool = False, force: bool = False) -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 

@@ -1,74 +1,105 @@
 // Blocked online-softmax attention (GQA, causal, sliding window) for
-// Hopper (sm_90a), fp32 arithmetic.
+// Hopper (sm_90a): a tensor-core kernel for fp16 and bf16, a SIMT kernel
+// for fp32.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_flash_kernel`
 // (pallas_call in `flash_attention_pallas`).  Same function as the plain
 // version `repro_torch.kernels.flash_attention.flash_attention_plain` and
 // the reference oracle `attention_reference`:
 //   o[b,h,i] = softmax_j(q[b,h,i] . k[b,h*Hk/H,j] / sqrt(hd), masked) @ v
-// q [B,H,Sq,hd], k/v [B,Hk,Sk,hd] in fp32, fp16 or bf16, o in q's type.
-// Masked scores are -1e30 (not -inf), so a query row whose keys are all
-// masked averages all Sk keys, as the Pallas kernel and the oracle do.  Keys
-// at or past Sk (the ragged edge) take no part at all, and query rows at or
-// past Sq are not written, so any Sq and Sk work (the Pallas kernel wants
-// multiples of its block).  Strides are the caller's (the innermost
-// dimension contiguous), so the model passes its [B,S,H,hd] projections
-// transposed, without a copy.
+// q [B,H,Sq,hd], k/v [B,Hk,Sk,hd] in fp32, fp16 or bf16, o in q's type,
+// hd <= 128.  Scores are fp32, from 0, scaled by 1/sqrt(hd).  Masked scores
+// are -1e30 (not -inf), so a query row whose keys are all masked averages
+// all Sk keys, as the Pallas kernel and the oracle do.  Keys at or past Sk
+// (the ragged edge) take no part at all, and query rows at or past Sq are
+// not written, so any Sq and Sk work (the Pallas kernel wants multiples of
+// its block).  Strides are the caller's (the innermost dimension
+// contiguous), so the model passes its [B,S,H,hd] projections transposed,
+// without a copy.  Both kernels use no atomics and never split the keys:
+// two calls give the same bits.
 //
 // What bounds it on this card: at Llama 3.1 8B's prefill (q [4,32,512,128]
 // fp16, k/v [4,8,512,128], causal) a call needs 8.6 GFLOP and moves 42 MB:
 // 8.7 us at the tensor cores' 989 TFLOP/s, 12.5 us at 3.35 TB/s, so bytes.
-// This first kernel runs on the fp32 FMA units (67 TFLOP/s, 128 us for the
-// same work) and is bound by its shared-memory loads and FMAs.
 //
-// Design: one block per (b, h, 32-row query tile), 8 warps of 4 query rows
-// each.  The block walks the key tiles its rows can see (causal: none past
-// its last row; window: none before its first row's window) in 32-key
-// tiles, staged in shared memory as fp32 (the K rows padded to hd + 1
-// floats, so that lane j reading row j hits bank j).  Scores: lane j owns
-// key j of the tile and runs the hd-long dot product for the warp's 4 rows
-// (q rows read from shared memory as broadcasts), starting from 0 and
-// scaled afterwards.  Softmax: per row a warp max and a warp sum by
-// shuffles, the running max m and sum l kept in fp32 as in the Pallas
-// kernel (m starts at -1e30).  P @ V: for each key j its probability is
-// shuffled to the warp and lane l accumulates the output columns l, l + 32,
-// l + 64, l + 96 (hd <= 128) from V's row j (consecutive lanes, consecutive
-// banks).  The output is acc / max(l, 1e-30).  No tensor cores, no atomics:
-// deterministic.  Tensor cores (wgmma), TMA and a pipelined K/V ring are the
+// fp16/bf16 (`tc::`), an FA2-style kernel on mma.sync tensor cores.  One
+// block per (b, h, query tile of BQ = 16 x FLASH_TC_WARPS rows), the
+// heaviest causal tiles first (the q-tile index runs backwards in
+// blockIdx.x, with (b, h) fastest).  The Q tile is copied once with 16-byte
+// cp.async and kept as ldmatrix A fragments in registers.  K/V tiles of 64
+// keys go through a 2-stage cp.async ring in shared memory, in the input
+// type, one barrier a tile: the next tile's copy is issued before the
+// current one is computed.  Rows are padded by 16 bytes, so the 8 row
+// addresses of each ldmatrix hit 8 different 4-bank groups.  Each warp owns
+// 16 query rows: S = Q K^T by mma.m16n8k16 (fp16/bf16 in, fp32
+// accumulators, K by ldmatrix), then the online softmax on the accumulator
+// fragments (scores in base 2, pre-multiplied by log2(e); row max and sum
+// by pairwise trees and two shuffles in each quad; exp2 on the SFU), the
+// mask built from each element's (row, key) only on tiles that cross the
+// diagonal, the window edge or Sk.  P is rounded to q's type in registers
+// and used as the A operand of P V (the m16n8 C layout is the m16n8k16 A
+// layout), V read by ldmatrix.trans; the sum l stays the fp32 sum of the
+// unrounded P and the fp32 accumulator is 16 x HDP a warp.  hd is padded
+// with zeros in shared memory to HDP = 32, 64 or 128 (6 instantiations);
+// the padded columns go through the mma like the others, so that the
+// unrolled loops hold no branch.  Loads are 16-byte cp.async when every
+// base pointer and row stride is 16-byte aligned and hd % 8 == 0 (always
+// on the LM path), element-wise into the same layout otherwise; the output
+// is staged in shared memory and stored the same way.  On the card its
+// time follows the instructions a warp issues per tile beside its 128 mma
+// (copies, mask, softmax, rescaling) more than the mma themselves; wgmma
+// and TMA, which take the products and the copies off the warps, are the
 // next version's.
+//
+// fp32 (`simt::`), the first port's kernel: no tensor cores (TF32 would
+// break the fp32 tolerance), so bound by its fp32 FMAs and shared-memory
+// loads (128 us of FMAs alone at 67 TFLOP/s for the work above).  One
+// block per (b, h, 32-row query tile), 8 warps of 4 query rows each.  The block walks
+// the key tiles its rows can see in 32-key tiles, staged in shared memory
+// (the K rows padded to hd + 1 floats, so that lane j reading row j hits
+// bank j).  Scores: lane j owns key j of the tile and runs the hd-long dot
+// product for the warp's 4 rows.  Softmax: per row a warp max and a warp
+// sum by shuffles.  P @ V: for each key j its probability is shuffled to
+// the warp and lane l accumulates the output columns l, l + 32, l + 64,
+// l + 96 from V's row j.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#ifndef FLASH_TC_WARPS
+#define FLASH_TC_WARPS 4   // warps of the tensor-core kernel: BQ = 16 x this
+#endif
 
 namespace {
+
+constexpr int HD_MAX = 128;
+constexpr float MASKED = -1e30f;    // the Pallas kernel's NEG_INF
+constexpr unsigned FULL = 0xffffffffu;
+
+// the key tiles some query row in [q0, q_last] can see, [*k_begin, *k_end):
+// causal, none past the last row; window, none before the first row's
+// window.  A row whose keys are all masked (only with a window and Sq > Sk)
+// sees every key, at -1e30.
+__device__ __forceinline__ void key_range(int q0, int q_last, int Sk,
+                                          int causal, int window, int bk,
+                                          int* k_begin, int* k_end) {
+  *k_end = causal ? min(Sk, q_last + 1) : Sk;
+  *k_begin = 0;
+  if (window > 0 && q_last < Sk + window - 1)
+    *k_begin = max(0, q0 - window + 1) / bk * bk;
+}
+
+// ------------------------------------------------------------ fp32, SIMT
+namespace simt {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int RW = 4;               // query rows per warp
 constexpr int BQ = WARPS * RW;      // query rows per block
 constexpr int BK = 32;              // keys per tile: one per lane
-constexpr int HD_MAX = 128;
 constexpr int DPL = HD_MAX / 32;    // output columns per lane
-constexpr float MASKED = -1e30f;    // the Pallas kernel's NEG_INF
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -85,11 +116,10 @@ size_t smem_bytes(int hd) {
   return sizeof(float) * (size_t)(BQ * hd + BK * (hd + 1) + BK * hd);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int H, int Hk, int Sq,
-    int Sk, int hd, long long qsb, long long qsh, long long qss,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int H, int Hk,
+    int Sq, int Sk, int hd, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh,
     long long oss, int causal, int window, float scale) {
@@ -101,24 +131,20 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int hk = (int)((long long)h * Hk / H);
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
-  T* ob = o + b * osb + h * osh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
+  float* ob = o + b * osb + h * osh;
   const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * RW;
 
   for (int i = tid; i < BQ * hd; i += THREADS) {
     const int r = i / hd, d = i - r * hd, qi = q0 + r;
-    qs[i] = qi < Sq ? to_f(qb[qi * qss + d]) : 0.0f;
+    qs[i] = qi < Sq ? qb[qi * qss + d] : 0.0f;
   }
 
-  // the key tiles some row of the block can see; a row whose keys are all
-  // masked (only with a window and Sq > Sk) sees every key, at -1e30
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  int k_begin = 0;
-  if (window > 0 && q_last < Sk + window - 1)
-    k_begin = max(0, q0 - window + 1) / BK * BK;
+  int k_begin, k_end;
+  key_range(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, BK, &k_begin,
+            &k_end);
 
   float m[RW], l[RW], acc[RW][DPL];
 #pragma unroll
@@ -135,8 +161,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
       const int j = i / hd, d = i - j * hd, kj = kt + j;
       float kv = 0.0f, vv = 0.0f;
       if (kj < Sk) {
-        kv = to_f(kb[kj * kss + d]);
-        vv = to_f(vb[kj * vss + d]);
+        kv = kb[kj * kss + d];
+        vv = vb[kj * vss + d];
       }
       ks[j * hdp + d] = kv;
       vs[j * hd + d] = vv;
@@ -201,9 +227,379 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) ob[qi * oss + d] = from_f<T>(acc[r][i] / denom);
+      if (d < hd) ob[qi * oss + d] = acc[r][i] / denom;
     }
   }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hk, int Sq, int Sk, int hd, long long qsb,
+           long long qsh, long long qss, long long ksb, long long ksh,
+           long long kss, long long vsb, long long vsh, long long vss,
+           long long osb, long long osh, long long oss, int causal,
+           int window, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attention_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hk, Sq, Sk,
+      hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace simt
+
+// ------------------------------------------------ fp16/bf16, tensor cores
+namespace tc {
+
+constexpr int WARPS = FLASH_TC_WARPS;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 16 * WARPS;      // query rows per block, 16 per warp
+constexpr int BK = 64;              // keys per K/V tile
+constexpr int STAGES = 2;           // the K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int PAD = 8;              // elements (16 bytes) after each row
+
+template <int HDP> size_t smem_bytes() {
+  return sizeof(uint16_t) * (size_t)(2 * STAGES * BK + BQ) * (HDP + PAD);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a b on the tensor cores: a 16x16 (row), b 16x8 (col), d 16x8 fp32
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma<__half>(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU, denormal results flushed to 0 (what exp2f compiles to
+// under --use_fast_math)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to T, the first in the low half
+template <typename T> __device__ __forceinline__ uint32_t pack2(float, float);
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float a,
+                                                              float b) {
+  __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// rows [row0, row0 + ROWS) of a [S, hd] matrix (row stride `stride`
+// elements) into shared memory [ROWS][HDP + PAD], zero past S and past hd
+// up to HDP.  `vec`: 16-byte cp.async (base and stride 16-byte aligned,
+// hd % 8 == 0); else element-wise loads.
+template <int ROWS, int HDP>
+__device__ __forceinline__ void load_tile(uint16_t* dst,
+                                          const uint16_t* src,
+                                          long long stride, int row0, int S,
+                                          int hd, bool vec) {
+  constexpr int LDS = HDP + PAD;
+  if (vec) {
+    constexpr int CPR = HDP / 8;         // 16-byte chunks a row
+    constexpr int RPP = THREADS / CPR;   // rows one pass of the block copies
+    static_assert(THREADS % CPR == 0 && ROWS % RPP == 0, "tile shape");
+    const int r = threadIdx.x / CPR, col = (threadIdx.x % CPR) * 8;
+    const uint16_t* g = src + (row0 + r) * stride + col;
+    uint16_t* d = dst + r * LDS + col;
+#pragma unroll
+    for (int j = 0; j < ROWS / RPP; ++j) {
+      if (row0 + r + j * RPP < S && col < hd)
+        cp_async16(smem_u32(d + j * RPP * LDS), g + j * RPP * stride);
+      else
+        *reinterpret_cast<uint4*>(d + j * RPP * LDS) = uint4{0, 0, 0, 0};
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HDP; i += THREADS) {
+      const int r = i / HDP, col = i % HDP, row = row0 + r;
+      dst[r * LDS + col] =
+          row < S && col < hd ? src[row * stride + col] : (uint16_t)0;
+    }
+  }
+}
+
+template <typename T, int HDP>
+__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
+    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+    const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int BH, int H,
+    int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, long long osb,
+    long long osh, long long oss, int causal, int window, float scale,
+    int vec) {
+  constexpr int LDS = HDP + PAD;
+  constexpr int KS = HDP / 16;      // k-steps of S = Q K^T
+  constexpr int NT = BK / 8;        // 8-key column tiles of S
+  constexpr int DT = HDP / 8;       // 8-column tiles of the output
+  constexpr int SST = 2 * BK * LDS; // one stage: its K tile, then its V tile
+  extern __shared__ __align__(16) uint16_t tc_smem[];
+  uint16_t* sq = tc_smem + STAGES * SST;       // [BQ][LDS]
+
+  // the heaviest (last) causal query tiles first, every (b, h) of a q-tile
+  // together
+  const int bh = (int)blockIdx.x % BH;
+  const int q0 = ((int)gridDim.x / BH - 1 - (int)blockIdx.x / BH) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int hk = (int)((long long)h * Hk / H);
+  const uint16_t* qb = q + b * qsb + h * qsh;
+  const uint16_t* kb = k + b * ksb + hk * ksh;
+  const uint16_t* vb = v + b * vsb + hk * vsh;
+  uint16_t* ob = o + b * osb + h * osh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // the fragment's row and column
+  const int wq0 = q0 + warp * 16;          // the warp's first query row
+
+  int k_begin, k_end;
+  key_range(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, BK, &k_begin,
+            &k_end);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const float sl2 = scale * LOG2E;
+
+  // tile i's K and V into stage i % STAGES, one commit group a tile (empty
+  // past the last tile, so that the wait below always counts the same)
+  auto load_kv = [&](int i) {
+    if (i < n_tiles) {
+      uint16_t* st = tc_smem + (i % STAGES) * SST;
+      load_tile<BK, HDP>(st, kb, kss, k_begin + i * BK, Sk, hd, vec);
+      load_tile<BK, HDP>(st + BK * LDS, vb, vss, k_begin + i * BK, Sk, hd,
+                         vec);
+    }
+    cp_async_commit();
+  };
+  load_tile<BQ, HDP>(sq, qb, qss, q0, Sq, hd, vec);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load_kv(i);
+  cp_async_wait<STAGES - 2>();   // Q and tile 0 have landed
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(qf[ks], smem_u32(sq + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
+                             (lane >> 4) * 8));
+
+  float acc[DT][4];
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) {
+      cp_async_wait<STAGES - 2>();   // tile it has landed
+      __syncthreads();   // ... for every thread, and tile it - 1 is read
+    }
+    load_kv(it + STAGES - 1);   // into the stage tile it - 1 used
+    const int kt = k_begin + it * BK;
+    // a tile wholly after the warp's last row is masked for all its rows,
+    // each of which sees its own key elsewhere
+    if (causal && kt > wq0 + 15) continue;
+    const uint16_t* kst = tc_smem + (it % STAGES) * SST;
+    const uint16_t* vst = kst + BK * LDS;
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_u32(kst + (np * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                       LDS + ks * 16 + ((lane >> 3) & 1) * 8));
+        mma<T>(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma<T>(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+    // scores in base 2; the mask only where the tile crosses the diagonal,
+    // the window edge or Sk
+    const bool edge = kt + BK > Sk || (causal && kt + BK - 1 > wq0) ||
+                      (window > 0 && kt <= wq0 + 15 - window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kt + n * 8 + 2 * t + (e & 1);
+          const int qi = wq0 + g + (e >> 1) * 8;
+          const bool visible = (!causal || kj <= qi) &&
+                               (window <= 0 || kj > qi - window);
+          s[n][e] = kj >= Sk ? -INFINITY   // past the keys: no weight at all
+                    : visible ? s[n][e] * sl2 : MASKED;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
+    }
+    uint32_t pf[NT][2];   // P rounded to T: the A fragments of P V
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float red[NT];   // pairwise trees: short dependency chains
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        red[n] = fmaxf(s[n][2 * r], s[n][2 * r + 1]);
+#pragma unroll
+      for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int i = 0; i < w; ++i) red[i] = fmaxf(red[i], red[i + w]);
+      float mx = fmaxf(red[0], __shfl_xor_sync(FULL, red[0], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2_approx(m[r] - m_new);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float p0 = exp2_approx(s[n][2 * r] - m_new);
+        const float p1 = exp2_approx(s[n][2 * r + 1] - m_new);
+        red[n] = p0 + p1;
+        pf[n][r] = pack2<T>(p0, p1);
+      }
+#pragma unroll
+      for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int i = 0; i < w; ++i) red[i] += red[i + w];
+      l[r] = l[r] * alpha + red[0];   // this thread's share of the row
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        acc[i][2 * r] *= alpha;
+        acc[i][2 * r + 1] *= alpha;
+      }
+    }
+    // acc += P V, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                             pf[2 * kk + 1][1]};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, smem_u32(vst + (kk * 16 + (lane & 15)) * LDS +
+                                   dp * 16 + (lane >> 4) * 8));
+        mma<T>(acc[2 * dp], a, vf[0], vf[1]);
+        mma<T>(acc[2 * dp + 1], a, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30) in T, staged in the warp's own 16 rows at the
+  // start of shared memory once every warp is done with the tiles
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint16_t* sw = tc_smem + warp * 16 * LDS;
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sw + g * LDS + col) =
+        pack2<T>(acc[i][0] / l[0], acc[i][1] / l[0]);
+    *reinterpret_cast<uint32_t*>(sw + (g + 8) * LDS + col) =
+        pack2<T>(acc[i][2] / l[1], acc[i][3] / l[1]);
+  }
+  __syncwarp();
+  if (vec) {
+    const int cpr = hd / 8;
+    for (int c = lane; c < 16 * cpr; c += 32) {
+      const int r = c / cpr, col = (c % cpr) * 8, qi = wq0 + r;
+      if (qi < Sq)
+        *reinterpret_cast<uint4*>(ob + qi * oss + col) =
+            *reinterpret_cast<const uint4*>(sw + r * LDS + col);
+    }
+  } else {
+    for (int i = lane; i < 16 * hd; i += 32) {
+      const int r = i / hd, col = i % hd, qi = wq0 + r;
+      if (qi < Sq) ob[qi * oss + col] = sw[r * LDS + col];
+    }
+  }
+}
+
+template <typename T, int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hk, int Sq, int Sk, int hd, long long qsb,
+               long long qsh, long long qss, long long ksb, long long ksh,
+               long long kss, long long vsb, long long vsh, long long vss,
+               long long osb, long long osh, long long oss, int causal,
+               int window, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HDP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attention_kernel<T, HDP><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), B * H, H,
+      Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
+      oss, causal, window, scale, vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -213,24 +609,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            long long kss, long long vsb, long long vsh, long long vss,
            long long osb, long long osh, long long oss, int causal,
            int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hk, Sq, Sk, hd, qsb,
-      qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window,
-      scale);
-  return (int)cudaGetLastError();
+  // 16-byte copies: every base 16-byte aligned, every stride and hd a
+  // multiple of 8 elements
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = hd % 8 == 0 && al(q) && al(k) && al(v) && al(o) &&
+                   (qsb | qsh | qss | ksb | ksh | kss | vsb | vsh | vss |
+                    osb | osh | oss) % 8 == 0;
+  auto fn = hd <= 32   ? &launch_hdp<T, 32>
+            : hd <= 64 ? &launch_hdp<T, 64>
+                       : &launch_hdp<T, 128>;
+  return fn(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss,
+            vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
+            stream);
 }
+
+}  // namespace tc
 
 }  // namespace
 
-// dtype: 0 fp32, 1 fp16, 2 bf16.  Strides in elements; hd <= 128.
-// Returns the CUDA error code of the launch (0 on success).
+// dtype: 0 fp32 (SIMT kernel), 1 fp16, 2 bf16 (tensor-core kernel).
+// Strides in elements; hd <= 128.  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
@@ -243,17 +644,18 @@ extern "C" int flash_attention_forward(
   const float sc = (float)scale;
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
-                           ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                           causal, window, sc, s);
+      return simt::launch(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
+                          ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                          causal, window, sc, s);
     case 1:
-      return launch<__half>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
-                            ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                            causal, window, sc, s);
+      return tc::launch<__half>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh,
+                                qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
+                                oss, causal, window, sc, s);
     case 2:
-      return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb,
-                                   qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
-                                   osb, osh, oss, causal, window, sc, s);
+      return tc::launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb,
+                                       qsh, qss, ksb, ksh, kss, vsb, vsh,
+                                       vss, osb, osh, oss, causal, window,
+                                       sc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

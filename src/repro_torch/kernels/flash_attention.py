@@ -4,10 +4,13 @@ windows: plain version and the wrapper of the CUDA kernel
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel``): q [B,H,Sq,hd], k/v [B,Hk,Sk,hd] (query head h reads KV
-head h * Hk // H) in float32, float16 or bfloat16; float32 arithmetic;
+head h * Hk // H) in float32, float16 or bfloat16; float32 scores and sums;
 masked scores are -1e30; the output is in q's type.  Unlike the Pallas
-kernel it takes any Sq and Sk.  The LM prefill runs every attention layer
-through it (``repro_torch.models.attention.chunked_attention``).
+kernel it takes any Sq and Sk.  float16 and bfloat16 run a tensor-core
+kernel, which rounds the probabilities to q's type before P @ V (as
+PyTorch's fused attention does); float32 runs a SIMT kernel.  The LM
+prefill runs every attention layer through it
+(``repro_torch.models.attention.chunked_attention``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128   # 32 lanes x 4 output columns
+# the fp32 kernel's 32 lanes x 4 output columns; the fp16/bf16 kernel's
+# widest zero-padded head
+MAX_HEAD_DIM = 128
 
 launches = 0   # CUDA launches of the kernel (one per wrapper call on CUDA)
 

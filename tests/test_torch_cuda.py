@@ -349,7 +349,15 @@ ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
     (2, 16, 4, 128, 128, 64, True, 0),
     (2, 4, 2, 33, 33, 128, True, 0), (1, 8, 2, 200, 200, 128, True, 0),
     (2, 4, 2, 200, 200, 16, False, 16), (1, 4, 1, 7, 40, 64, False, 0),
-    (1, 4, 2, 40, 9, 32, False, 4), (1, 4, 4, 1, 1, 96, True, 0)])
+    (1, 4, 2, 40, 9, 32, False, 4), (1, 4, 4, 1, 1, 96, True, 0),
+    # the fp16/bf16 kernel's edges: hd zero-padded to 64 and 128; several
+    # 64-key tiles and a ragged last one; causal with Sq != Sk both ways;
+    # a window across 64-key tiles with Sq > Sk (rows from Sk + window - 1
+    # on see no key and average all of them)
+    (1, 4, 2, 100, 100, 40, True, 0), (1, 4, 2, 150, 150, 80, True, 0),
+    (1, 4, 2, 1000, 1000, 128, True, 0), (1, 4, 2, 300, 170, 64, True, 0),
+    (1, 4, 2, 70, 300, 128, True, 0), (1, 4, 2, 200, 100, 64, False, 70),
+    (1, 4, 2, 200, 100, 80, True, 70)])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
                                               causal, window, dtype):
     g = _gen(dev, Sq * 7 + hd)
@@ -370,17 +378,34 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
         q, k, v, causal=causal, window=window))          # deterministic
 
 
-def test_flash_attention_kernel_reads_strided_views(dev):
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["transposed", "unaligned"])
+def test_flash_attention_kernel_reads_strided_views(dev, layout, dtype):
     """The model passes its [B,S,H,hd] projections transposed, without a
-    copy; the output keeps q's layout."""
+    copy; the output keeps q's layout.  "unaligned": q, k and v are
+    x[..., 1:65] of [..., 66] tensors, whose base and row stride are not
+    16-byte aligned, so the kernel loads them element by element."""
     g = _gen(dev, 3)
-    q = torch.randn((2, 50, 8, 64), generator=g, device=dev).half()
-    kv = torch.randn((2, 50, 2, 2, 64), generator=g, device=dev).half()
-    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-    got = flash_attention.flash_attention(q.transpose(1, 2), k, v)
-    assert got.transpose(1, 2).is_contiguous()
-    want = flash_attention.flash_attention_plain(q.transpose(1, 2), k, v)
-    assert float((got.float() - want.float()).abs().max()) < 2e-2
+    if layout == "transposed":
+        q = torch.randn((2, 50, 8, 64), generator=g, device=dev).to(dtype)
+        kv = torch.randn((2, 50, 2, 2, 64), generator=g,
+                         device=dev).to(dtype)
+        q = q.transpose(1, 2)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    else:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   [..., 1:65] for s in ((2, 8, 150, 66), (2, 2, 150, 66),
+                                         (2, 2, 150, 66)))
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    if layout == "transposed":
+        assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention.flash_attention_plain(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    assert torch.equal(got, flash_attention.flash_attention(q, k, v))
 
 
 @pytest.mark.parametrize("B,S,D,N", [(1, 128, 64, 8), (2, 256, 128, 16),
