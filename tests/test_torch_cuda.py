@@ -190,6 +190,50 @@ def test_sumtree_kernel_matches_plain_bitwise(dev, cap, n):
                                               rel=1e-12)
 
 
+def _sumtree_index_sets(cap, n, rng):
+    """Random indices; all N writes to one index; and (N >= 4) the leaves
+    first and last in the kernel's sorted order (leaf aligned to the
+    deepest level) written again at the end, with an out-of-range index in
+    the middle."""
+    lmax = (2 * cap - 1).bit_length() - 1
+    yield rng.integers(0, cap, n)
+    yield np.full(n, rng.integers(0, cap))
+    if n >= 4:
+        idx = rng.integers(0, cap, n)
+        aligned = [int(x) << (lmax - (int(x).bit_length() - 1))
+                   for x in idx + cap]
+        idx[-1] = idx[int(np.argmin(aligned))]
+        idx[-2] = idx[int(np.argmax(aligned))]
+        idx[n // 2] = cap if n % 2 else -1
+        yield idx
+
+
+@pytest.mark.parametrize("cap", [1, 8, 100, 257, 100_000])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 448, 1024, 1025])
+def test_sumtree_kernel_matches_host_sumtree_bitwise(dev, cap, n):
+    """The kernel against the host float64 ``SumTree.set_many``, bitwise,
+    on a tree whose inner nodes are not the sums of their children (an
+    untouched node keeps its value): duplicates at a run's ends, one index
+    written N times, an out-of-range index, per-write values and a scalar;
+    N > 1024 in two ordered launches."""
+    rng = np.random.default_rng(cap * 31 + n)
+    base = rng.random(2 * cap)
+    for idx in _sumtree_index_sets(cap, n, rng):
+        for vals in (rng.random(n), 0.25):
+            host = replay.SumTree(cap)
+            host.tree = base.copy()
+            keep = (idx >= 0) & (idx < cap)
+            host.set_many(idx[keep], vals[keep] if np.ndim(vals) else vals)
+            got = torch.as_tensor(base, device=dev)
+            before = sumtree.launches
+            sumtree.sumtree_set_many(
+                got, torch.as_tensor(idx, device=dev),
+                torch.as_tensor(vals, device=dev) if np.ndim(vals) else vals)
+            torch.cuda.synchronize()
+            assert sumtree.launches == before + -(-n // sumtree.MAX_N)
+            np.testing.assert_array_equal(got.cpu().numpy(), host.tree)
+
+
 @pytest.mark.parametrize("cap", [1, 8, 257, 100_000])
 @pytest.mark.parametrize("n", [1, 256, 448])
 def test_sumtree_sample_kernel_matches_plain_bitwise(dev, cap, n):

@@ -216,3 +216,132 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         policy_mlp.fused_mlp(torch.zeros((2, 82), device="meta"),
                              *(torch.as_tensor(w) for w in _mlp_weights(3)))
+
+
+_SENTINEL = np.uint64(2 ** 64 - 1)
+
+
+def _emulate_sumtree_launch(tree, idx, values):
+    """numpy emulation of one launch of ``csrc/sumtree.cu`` (<= 1024
+    writes), step for step: composite keys (the leaf aligned to the deepest
+    level, shifted left by 10, OR the position) through the same bitonic
+    network, the run-last winners compacted in order, each winner's L*
+    from its key and the previous one, the level loop from run buffers
+    (value and end of the run that starts at e + 1) and siblings staged
+    before the loop, and nodes 1..31 from level 5 by the top warp."""
+    cap = len(tree) // 2
+    n = len(idx)
+    lmax = (2 * cap - 1).bit_length() - 1
+    p = 32
+    while p < n:
+        p *= 2
+    old = tree.copy()
+    key = np.full(p, _SENTINEL, np.uint64)
+    for t, x in enumerate(idx):
+        if 0 <= x < cap:
+            leaf = int(x) + cap
+            key[t] = ((leaf << (lmax - (leaf.bit_length() - 1))) << 10) | t
+    lanes = np.arange(p)
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j:
+            other = key[lanes ^ j]
+            take_min = ((lanes & k) == 0) == ((lanes & j) == 0)
+            key = np.where(take_min, np.minimum(key, other),
+                           np.maximum(key, other))
+            j //= 2
+        k *= 2
+    assert (np.diff(key.astype(np.float64)) >= 0).all()
+    nxt = np.append(key[1:], _SENTINEL)
+    win = (key != _SENTINEL) & ((nxt >> np.uint64(10)) != (key
+                                                            >> np.uint64(10)))
+    c0 = [int(x) >> 10 for x in key[win]]
+    pos = [int(x) & 1023 for x in key[win]]
+    m = len(c0)
+    v = [float(values[j]) if np.ndim(values) else float(values)
+         for j in pos]
+    for c, val in zip(c0, v):
+        tree[c >> 1 if c >= 2 * cap else c] = val
+    staged = tree.copy()        # untouched siblings never change later
+    lstar = [-1] + [lmax - (c0[f - 1] ^ c0[f]).bit_length()
+                    for f in range(1, m)]
+    e = list(range(m))
+    stop = 5 if cap >= 64 else 0
+    runv, rune = [0.0] * m, [0] * m
+    for level in range(lmax - 1, stop - 1, -1):
+        s = lmax - level
+        for f in range(m):
+            if lstar[f] == level:
+                runv[f], rune[f] = v[f], e[f]
+        for f in range(m):
+            a = c0[f] >> s
+            if lstar[f] >= level or a >= cap:
+                continue
+            c = c0[f] >> (s - 1)
+            sib = staged[c ^ 1]
+            if c & 1:
+                v[f] = sib + v[f]
+            elif e[f] + 1 < m and (c0[e[f] + 1] >> s) == a:
+                v[f] = v[f] + runv[e[f] + 1]
+                e[f] = rune[e[f] + 1]
+            else:
+                v[f] = v[f] + sib
+            tree[a] = v[f]
+    if stop:
+        touched = np.zeros(32, bool)
+        x = old[32:64].copy()
+        for f in range(m):
+            if lstar[f] < 5:
+                a = (c0[f] >> (lmax - 5)) - 32
+                touched[a], x[a] = True, v[f]
+        for level in range(4, -1, -1):
+            w = 1 << level
+            tl, tr = touched[0:2 * w:2], touched[1:2 * w:2]
+            x = np.where(tl | tr, x[0:2 * w:2] + x[1:2 * w:2],
+                         old[w:2 * w])
+            touched = tl | tr
+            tree[w:2 * w][touched] = x[touched]
+    return tree
+
+
+def _sumtree_cases(cap, n, rng):
+    """Index sets for one (cap, N): random, all N writes to one index, and
+    (N >= 4) the first- and last-sorted leaves written again at the end
+    with an out-of-range index in the middle."""
+    lmax = (2 * cap - 1).bit_length() - 1
+    idx = rng.integers(0, cap, n)
+    yield "random", idx
+    yield "one index", np.full(n, rng.integers(0, cap))
+    if n >= 4:
+        idx = rng.integers(0, cap, n)
+        leaf = idx + cap
+        aligned = [int(x) << (lmax - (int(x).bit_length() - 1)) for x in leaf]
+        idx[-1], idx[-2] = idx[int(np.argmin(aligned))], idx[int(np.argmax(
+            aligned))]
+        idx[n // 2] = cap if n % 2 else -1
+        yield "run ends + out of range", idx
+
+
+@pytest.mark.parametrize("cap", [1, 8, 100, 257, 100_000])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 448, 1024, 1025])
+def test_sumtree_kernel_algorithm_matches_host_oracle_bitwise(cap, n):
+    """The CUDA kernel's algorithm (``_emulate_sumtree_launch``) against
+    the reference's host float64 ``SumTree.set_many``, bitwise, on a tree
+    whose inner nodes are not the sums of their children (so an untouched
+    node must keep its value), with per-write values and a scalar; N >
+    1024 goes through two launches in order, as the wrapper splits it."""
+    rng = np.random.default_rng(cap * 1031 + n)
+    base = rng.random(2 * cap)
+    for label, idx in _sumtree_cases(cap, n, rng):
+        for vals in (rng.random(n), 0.25):
+            host = ref_replay.SumTree(cap)
+            host.tree = base.copy()
+            keep = (idx >= 0) & (idx < cap)
+            host.set_many(idx[keep], vals[keep] if np.ndim(vals) else vals)
+            got = base.copy()
+            for lo in range(0, n, sumtree.MAX_N):
+                part = slice(lo, lo + sumtree.MAX_N)
+                got = _emulate_sumtree_launch(
+                    got, idx[part], vals[part] if np.ndim(vals) else vals)
+            np.testing.assert_array_equal(got, host.tree, err_msg=label)
