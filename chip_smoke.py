@@ -15,8 +15,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      actor also with heads, biases and gate set so that both log_std clips,
      the saturated tanh and a peaked gate are reached; ``fused_mlp`` also
      with bf16 input (3e-2); ``sumtree`` bitwise (float64 sums of final
-     children) at caps 8, 100, 257 and 100,000 with duplicates and a
-     scalar broadcast; ``sumtree_sample`` (the device PER's descent)
+     children) at caps 1, 8, 100, 257 and 100,000, N 1 to 1,500, with
+     duplicates and a scalar broadcast; ``sumtree_sample`` (the device PER's descent)
      bitwise against its plain version and the host ``SumTree`` walk; the
      device PER's sampled indices and tree against the host ``SumTree`` on
      the same uniforms; the batched env step and
@@ -35,7 +35,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      eager calls), the eager call time with the host's work, the least
      time the card could take, and for ``flash_attention`` (the LM prefill
      shape in fp16, bf16 and fp32, and sequence 2048 in fp16) PyTorch's
-     ``scaled_dot_product_attention`` on the same inputs;
+     ``scaled_dot_product_attention`` on the same inputs; ``actor_moe`` at
+     B = 64, 192 and 448, ``sumtree`` at random N = 64, 256, 448 and at
+     the inserts' contiguous 64 and 448 leaves with a scalar; and
+     ``launch_floor_us``, an empty kernel in the same harness;
   5. the single-search path: ``repro_torch.launch.dse.run`` on ``cuda``
      (Llama 3.1 8B decode, seq 2048, batch 3, high-performance mode, node
      3, 4,613 episodes, 64 envs, seed 0, gate threshold ``GATE_THRESHOLD``)
@@ -68,6 +71,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -204,6 +208,47 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return _events_ms(graph.replay, replays) / calls
 
 
+FLOOR_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_floor_build(nvcc: str, flags, out_dir: str):
+    """Start ``nvcc`` on an empty kernel, the yardstick of what any launch
+    costs in phase 4's harness; returns the process and the library."""
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "launch_floor.cu")
+    lib = os.path.join(out_dir, "liblaunch_floor.so")
+    with open(src, "w") as f:
+        f.write(FLOOR_CU)
+    proc = subprocess.Popen([nvcc, *flags, "-shared", "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def load_floor(proc, lib: str):
+    """Wait for :func:`start_floor_build`; returns a function that launches
+    the empty kernel on the current stream."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the empty kernel:\n{out}")
+    cdll = ctypes.CDLL(lib)
+    cdll.empty_launch.argtypes = [ctypes.c_void_p]
+    cdll.empty_launch.restype = ctypes.c_int
+
+    def launch():
+        rc = cdll.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty_launch: CUDA error {rc} at launch")
+    return launch
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -325,7 +370,9 @@ def main() -> None:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.time()
+    floor_build = start_floor_build(build.nvcc(), build.NVCC_FLAGS, OUT)
     lib_path = build.build(verbose=True, force=True)
+    empty_launch = load_floor(*floor_build)
     log(f"built {os.path.relpath(lib_path, ROOT)} in {time.time() - t0:.1f} s")
     print(build.last_build_log, flush=True)
     build.library()
@@ -352,7 +399,7 @@ def main() -> None:
     hot["mu"]["b"][:, col == 0] = -4.0
     hot["mu"]["b"][:, col == 2] = 4.0
     for label, params in (("init", actor), ("hot", hot)):
-        for b in (33, 64, 192):
+        for b in (33, 64, 192, 448):
             s = torch.randn((b, 52), generator=gen, device=dev)
             got = actor_moe.actor_forward_cuda(params, s)
             torch.cuda.synchronize()
@@ -402,10 +449,10 @@ def main() -> None:
     # children), duplicates last-write-wins, a scalar broadcast, N > 1024
     # split into ordered launches; the root against the sum of the leaves
     nrng = np.random.default_rng(SEED)
-    for cap in (8, 100, 257, SUMTREE_CAP):
+    for cap in (1, 8, 100, 257, SUMTREE_CAP):
         base = replay.SumTree(cap)
         base.set_many(np.arange(cap), nrng.random(cap))
-        for n in (1, 64, 256, 448, 1500):
+        for n in (1, 31, 32, 33, 64, 256, 448, 1024, 1500):
             idx = nrng.integers(0, cap, n)
             idx[-1] = idx[0]
             for vals in (nrng.random(n), 0.25):
@@ -428,9 +475,9 @@ def main() -> None:
                 if not np.isclose(float(got[1]), float(got[cap:].sum()),
                                   rtol=1e-12, atol=0):
                     fail(f"sumtree cap {cap} N={n}: root != sum of leaves")
-    log("parity sumtree: bitwise == plain at caps 8/100/257/100000, "
-        "N 1/64/256/448/1500, per-leaf values and scalar broadcast; root == "
-        "sum of leaves (rtol 1e-12)")
+    log("parity sumtree: bitwise == plain at caps 1/8/100/257/100000, "
+        "N 1/31/32/33/64/256/448/1024/1500, per-leaf values and scalar "
+        "broadcast; root == sum of leaves (rtol 1e-12)")
     # sumtree_sample: bitwise against the plain descent and the host walk,
     # on trees with zero leaves (prefix sums landing on boundaries) and
     # leaves on two levels
@@ -619,7 +666,7 @@ def main() -> None:
             f"{library_ms} | eager call_ms {call:.5f} plain_call_ms "
             f"{plain_call:.5f}")
 
-    for b in (64, 192):
+    for b in (64, 192, 448):
         s = torch.randn((b, 52), generator=gen, device=dev)
         timed(("actor_moe", b), f"B={b}",
               lambda: actor_moe.actor_forward_cuda(actor, s),
@@ -646,6 +693,21 @@ def main() -> None:
               lambda: sumtree.sumtree_set_many_cuda(tree, idx, vals),
               lambda: sumtree.sumtree_set_many_plain(tree, idx, vals),
               sumtree_work(idx_np, SUMTREE_CAP, False), plain_in_graph=False)
+    # the inserts' shape: a contiguous run of leaves and a scalar
+    # (PERBuffer.add_batch), 64 a dispatch in the single cell, 448 in a
+    # campaign batch
+    for n in (64, 448):
+        idx_np = (SUMTREE_CAP - 17 + np.arange(n)) % SUMTREE_CAP
+        idx = torch.as_tensor(idx_np, device=dev)
+        timed(("sumtree", f"insert{n}"), f"N={n} contiguous scalar "
+              f"cap={SUMTREE_CAP}",
+              lambda: sumtree.sumtree_set_many_cuda(tree, idx, 0.5),
+              lambda: sumtree.sumtree_set_many_plain(tree, idx, 0.5),
+              sumtree_work(idx_np, SUMTREE_CAP, True), plain_in_graph=False)
+    # what any launch costs in this harness: an empty kernel
+    floor = device_ms(empty_launch)
+    log(f"launch_floor_us {1e3 * floor:.4f} (an empty kernel, <<<1, 32>>>, "
+        "200 launches replayed from a CUDA graph between CUDA events)")
     for n in (256,):
         u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
         timed(("sumtree_sample", n), f"N={n} cap={SUMTREE_CAP}",

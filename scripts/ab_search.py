@@ -16,8 +16,9 @@ With ``--profile N`` each tree instead runs one search of N dispatches
 under ``torch.profiler`` (after an unprofiled warm-up search), with the
 replay buffer's methods, the SAC and world-model updates, the policy's
 acting and the env step labelled, and prints per tree the wall time, the
-device's busy time and op count, each label's host time and calls, and
-the host ops with the most self time.
+device's busy time and op count, the device time and launches of each of
+the port's search kernels, each label's host time and calls, and the host
+ops with the most self time.
 
     python3 scripts/ab_search.py --trees experiments/parent . \\
         --out chiprun_out/ab [--profile 24]
@@ -49,6 +50,8 @@ if sys.argv[3] == "profile":
     from repro_torch.workload.extract import extract
 
     tags = set()
+    PORT_KERNELS = ("sumtree_set_many", "sumtree_sample", "actor_",
+                    "screen_scores", "fused_mlp")
 
     def label(owner, name, tag):
         tags.add(tag)
@@ -83,10 +86,19 @@ if sys.argv[3] == "profile":
     on_dev = [e for e in ev if str(e.device_type).endswith("CUDA")
               and dev_t(e) > 0 and e.key not in tags]
     host = [e for e in ev if not str(e.device_type).endswith("CUDA")]
+    # the port's search kernels: device ms and launches over the N
+    # dispatches, the instantiations of one kernel summed
+    port = {}
+    for e in on_dev:
+        name = next((w for w in PORT_KERNELS if w in e.key), None)
+        if name is not None:
+            acc = port.setdefault(name, [0.0, 0])
+            acc[0] += dev_t(e) / 1e3
+            acc[1] += e.count
     print(json.dumps(dict(
         wall_ms=1e3 * wall, loop_ms=1e3 * sum(r.dispatch_s),
         device_busy_ms=sum(dev_t(e) for e in on_dev) / 1e3,
-        device_ops=sum(e.count for e in on_dev),
+        device_ops=sum(e.count for e in on_dev), port_kernels=port,
         labels={e.key: [e.cpu_time_total / 1e3, e.count] for e in host
                 if e.key in tags},
         top_host={e.key: [e.self_cpu_time_total / 1e3, e.count] for e in

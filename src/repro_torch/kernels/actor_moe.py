@@ -62,20 +62,21 @@ _SHAPES = ((STATE_DIM, N_EXPERTS),
 
 def actor_forward_cuda(params: Dict, s: torch.Tensor
                        ) -> Tuple[torch.Tensor, ...]:
-    """Launch the CUDA kernel on ``s``'s device and current stream."""
+    """Launch the CUDA kernel on ``s``'s device and current stream: one
+    launch, which allocates nothing (the outputs are allocated here)."""
     global launches
     weights = _flat_params(params)
     for t, shape in zip((s,) + weights,
                         ((s.shape[0], STATE_DIM),) + _SHAPES):
         if t.device != s.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(
-                f"actor_moe: expected contiguous float32 {shape} on "
-                f"{s.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+                f"actor_moe: expected contiguous, 16-byte aligned float32 "
+                f"{shape} on {s.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
     b = s.shape[0]
     dev = s.device
-    scratch = torch.empty((N_EXPERTS, b, N_DISC_OUT + 2 * N_CONT),
-                          dtype=torch.float32, device=dev)
     disc = torch.empty((b, N_DISC_OUT), dtype=torch.float32, device=dev)
     mu = torch.empty((b, N_CONT), dtype=torch.float32, device=dev)
     log_std = torch.empty((b, N_CONT), dtype=torch.float32, device=dev)
@@ -83,9 +84,8 @@ def actor_forward_cuda(params: Dict, s: torch.Tensor
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.actor_moe_forward(
-        s.data_ptr(), *(w.data_ptr() for w in weights), scratch.data_ptr(),
-        disc.data_ptr(), mu.data_ptr(), log_std.data_ptr(), gate.data_ptr(),
-        b, stream)
+        s.data_ptr(), *(w.data_ptr() for w in weights), disc.data_ptr(),
+        mu.data_ptr(), log_std.data_ptr(), gate.data_ptr(), b, stream)
     build.check(rc, "actor_moe_forward")
     launches += 1
     return disc, mu, log_std, gate

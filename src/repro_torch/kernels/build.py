@@ -31,7 +31,7 @@ _D = ctypes.c_double
 # C signatures: every pointer (and the stream) is a c_void_p, every int
 # c_int, a 64-bit int c_longlong and a double c_double
 SIGNATURES = {
-    "actor_moe_forward": [_P] * 17 + [_I, _P],
+    "actor_moe_forward": [_P] * 16 + [_I, _P],
     "screen_score_forward": [_P] * 10 + [_I, _I, _P],
     "sumtree_set_many": [_P, _P, _P, _D, _I, _L, _P],
     "sumtree_sample": [_P, _P, _P, _I, _L, _L, _P],

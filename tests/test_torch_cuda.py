@@ -208,14 +208,15 @@ def _sumtree_index_sets(cap, n, rng):
         yield idx
 
 
-@pytest.mark.parametrize("cap", [1, 8, 100, 257, 100_000])
+@pytest.mark.parametrize("cap", [1, 8, 100, 257, 100_000, 2 ** 21 + 3])
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 448, 1024, 1025])
 def test_sumtree_kernel_matches_host_sumtree_bitwise(dev, cap, n):
     """The kernel against the host float64 ``SumTree.set_many``, bitwise,
     on a tree whose inner nodes are not the sums of their children (an
     untouched node keeps its value): duplicates at a run's ends, one index
     written N times, an out-of-range index, per-write values and a scalar;
-    N > 1024 in two ordered launches."""
+    N > 1024 in two ordered launches.  A capacity above 2^20 takes the
+    64-bit keys and loads the upper levels' siblings in the loop."""
     rng = np.random.default_rng(cap * 31 + n)
     base = rng.random(2 * cap)
     for idx in _sumtree_index_sets(cap, n, rng):
@@ -232,6 +233,37 @@ def test_sumtree_kernel_matches_host_sumtree_bitwise(dev, cap, n):
             torch.cuda.synchronize()
             assert sumtree.launches == before + -(-n // sumtree.MAX_N)
             np.testing.assert_array_equal(got.cpu().numpy(), host.tree)
+
+
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 33, 64, 192, 448, 4096])
+def test_actor_kernel_one_launch_repeatable(dev, b):
+    """One launch per call at every row tiling (ragged tiles, the search's,
+    the campaign's and the MPC rollouts' batches), within rtol 1e-4 / atol
+    1e-5 of the plain version, and bitwise equal on a repeat."""
+    actor = sac.create(1, dev).params.actor
+    s = torch.randn((b, 52), generator=_gen(dev, 1000 + b), device=dev)
+    before = actor_moe.launches
+    got = actor_moe.actor_forward(actor, s)
+    torch.cuda.synchronize()
+    assert actor_moe.launches == before + 1
+    with torch.no_grad():
+        want = actor_moe.actor_forward_plain(actor, s)
+    for g, w, a in zip(got, want, actor_moe.actor_forward(actor, s)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+        assert torch.equal(g, a)
+
+
+def test_actor_kernel_refuses_unaligned_tensors(dev):
+    """The kernel copies with 16-byte cp.async: a contiguous view that
+    starts off a 16-byte boundary is refused, not read."""
+    actor = sac.create(0, dev).params.actor
+    w = actor["l2"]["w"]
+    flat = torch.empty(w.numel() + 1, device=dev)
+    shifted = flat[1:].view(w.shape)
+    shifted.copy_(w)
+    bad = dict(actor, l2={"w": shifted, "b": actor["l2"]["b"]})
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        actor_moe.actor_forward(bad, torch.zeros((4, 52), device=dev))
 
 
 @pytest.mark.parametrize("cap", [1, 8, 257, 100_000])
