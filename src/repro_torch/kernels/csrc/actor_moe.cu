@@ -19,12 +19,12 @@
 // of 8 CTAs, one cluster per tile of TB rows: CTA (k, h) of the cluster runs
 // expert k on hidden units [128h, 128h + 128).  At B = 64 and TB = 8 that is
 // 64 CTAs.  Every weight a CTA needs streams in by bulk copies (TMA, one
-// instruction per contiguous piece, completion counted on an mbarrier), all
-// started before any arithmetic: W1 whole and the state tile, then W2's
-// columns of this half row by row, one row a thread, one mbarrier per
-// warp's 32 rows.  So the copies run behind the arithmetic and L2's
-// latency is paid about once.  Layer 1 is computed whole (256 units, one
-// per thread, all TB rows), so no exchange is needed before layer 2; once
+// instruction per contiguous piece or per box of a tensor map, completion
+// counted on an mbarrier), all started before any arithmetic: W1 whole and
+// the state tile, then W2's columns of this half as 8 boxes of 32 rows, one
+// mbarrier per warp's box.  So the copies run behind the arithmetic and L2's
+// latency is paid about once.  Layer 1 is computed whole (256 units, 4 a
+// thread over TB / 4 rows), so no exchange is needed before layer 2; once
 // it is done, the heads' rows of this half stream into W1's place.  Layer
 // 2: warp w multiplies rows [32w, 32w + 32) of W2 into TB x 4 register
 // accumulators per lane (float4 reads of W2, broadcast reads of h1), leaves
@@ -42,6 +42,7 @@
 // from 0 and takes its bias last, as x @ W + b does: started from a large
 // bias, every partial sum would round at the bias's magnitude.
 #include <cooperative_groups.h>
+#include <cuda.h>   // CUtensorMap; its encoder is looked up at run time
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -131,6 +132,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar) {
       "}\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
+// tensor copy (TMA) of the box at (c0, c1, c2) of `map` into this CTA's
+// shared memory (128-byte aligned), counted on `bar`
+__device__ __forceinline__ void tensor_copy(float* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar)) : "memory");
+}
+
 // bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global to this CTA's shared memory, counted on `bar`
 __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
@@ -146,17 +159,17 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
 __launch_bounds__(THREADS, 1)
 actor_moe_kernel(const float* __restrict__ s, const float* __restrict__ gate_w,
                  const float* __restrict__ l1w, const float* __restrict__ l1b,
-                 const float* __restrict__ l2w, const float* __restrict__ l2b,
+                 const float* __restrict__ l2b,
                  const float* __restrict__ dw, const float* __restrict__ db,
                  const float* __restrict__ mw, const float* __restrict__ mb,
                  const float* __restrict__ lw, const float* __restrict__ lb,
                  float* __restrict__ disc, float* __restrict__ mu,
                  float* __restrict__ log_std, float* __restrict__ gate,
-                 int B) {
+                 int B, const __grid_constant__ CUtensorMap w2map) {
   using L = Smem<TB>;
   static_assert(TB % CLUSTER == 0, "a CTA blends TB / 8 rows");
   constexpr int MR = L::MR;
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(128) float sm[];
   float* w2s = sm;
   float* w1s = w2s + L::w2;
   float* whs = w1s;              // the heads' rows, after layer 1
@@ -186,7 +199,7 @@ actor_moe_kernel(const float* __restrict__ s, const float* __restrict__ gate_w,
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   // 1. start every copy: the state tile and W1, then W2's columns of this
-  // half, row r by lane r % 32 of warp r / 32
+  // half, rows [32w, 32w + 32) by one tensor copy of warp w
   if (t == 0) {
     mbar_expect_tx(bars + BAR_IN, sizeof(float) * (rows * S + S * H));
     bulk_copy(xs, s + static_cast<size_t>(r0) * S, sizeof(float) * rows * S,
@@ -194,34 +207,49 @@ actor_moe_kernel(const float* __restrict__ s, const float* __restrict__ gate_w,
     bulk_copy(w1s, l1w + static_cast<size_t>(k) * S * H,
               sizeof(float) * S * H, bars + BAR_IN);
   }
-  if (lane == 0) mbar_expect_tx(bars + BAR_W2 + warp, sizeof(float) * KS * HH);
-  __syncwarp();
-  bulk_copy(w2s + t * HH,
-            l2w + (static_cast<size_t>(k) * H + t) * H + half * HH,
-            sizeof(float) * HH, bars + BAR_W2 + warp);
+  if (lane == 0) {
+    mbar_expect_tx(bars + BAR_W2 + warp, sizeof(float) * KS * HH);
+    tensor_copy(w2s + warp * KS * HH, &w2map, half * HH, warp * KS, k,
+                bars + BAR_W2 + warp);
+  }
 
-  // 2. layer 1: hidden unit t of all TB rows, from 0, bias last
+  // 2. layer 1: units 4 (t % 64) .. + 3 of rows t / 64 + 4 r (float4 reads
+  // of W1, broadcast reads of the state), each from 0, bias last
   mbar_wait(bars + BAR_IN);
   {
-    float acc[TB];
+    constexpr int RQ = TB / 4;
+    const int c4 = 4 * (t % (H / 4)), g0 = t / (H / 4);
+    float acc[RQ][4];
 #pragma unroll
-    for (int r = 0; r < TB; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < RQ; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
 #pragma unroll 4
     for (int i = 0; i < S; i += 4) {
-      const float w0 = w1s[i * H + t], w1 = w1s[(i + 1) * H + t];
-      const float w2 = w1s[(i + 2) * H + t], w3 = w1s[(i + 3) * H + t];
+      float4 w[4];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(xs + r * S + i);
-        acc[r] = fmaf(x.x, w0, acc[r]);
-        acc[r] = fmaf(x.y, w1, acc[r]);
-        acc[r] = fmaf(x.z, w2, acc[r]);
-        acc[r] = fmaf(x.w, w3, acc[r]);
+      for (int q = 0; q < 4; ++q)
+        w[q] = *reinterpret_cast<const float4*>(w1s + (i + q) * H + c4);
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(xs + (g0 + 4 * r) * S + i);
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[r][0] = fmaf(xv[q], w[q].x, acc[r][0]);
+          acc[r][1] = fmaf(xv[q], w[q].y, acc[r][1]);
+          acc[r][2] = fmaf(xv[q], w[q].z, acc[r][2]);
+          acc[r][3] = fmaf(xv[q], w[q].w, acc[r][3]);
+        }
       }
     }
-    const float b = l1b[k * H + t];
+    const float4 b = *reinterpret_cast<const float4*>(l1b + k * H + c4);
 #pragma unroll
-    for (int r = 0; r < TB; ++r) h1[r * H + t] = gelu_tanh(acc[r] + b);
+    for (int r = 0; r < RQ; ++r)
+      *reinterpret_cast<float4*>(h1 + (g0 + 4 * r) * H + c4) = make_float4(
+          gelu_tanh(acc[r][0] + b.x), gelu_tanh(acc[r][1] + b.y),
+          gelu_tanh(acc[r][2] + b.z), gelu_tanh(acc[r][3] + b.w));
   }
   __syncthreads();
   // W1 is consumed: the heads' rows of this half take its place
@@ -394,6 +422,39 @@ actor_moe_kernel(const float* __restrict__ s, const float* __restrict__ gate_w,
   }
 }
 
+// cuTensorMapEncodeTiled's type (the driver's, found through the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// W2 [4][256][256] as a tensor map of boxes of 32 rows x 128 columns
+cudaError_t w2_tensor_map(CUtensorMap* map, const float* l2w) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {H, H, E};
+  const cuuint64_t strides[2] = {H * sizeof(float), H * H * sizeof(float)};
+  const cuuint32_t box[3] = {HH, KS, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(l2w), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int TB>
 int launch(const float* s, const float* gate_w, const float* l1w,
            const float* l1b, const float* l2w, const float* l2b,
@@ -408,11 +469,14 @@ int launch(const float* s, const float* gate_w, const float* l1w,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
   }
+  CUtensorMap w2map;
+  const cudaError_t err = w2_tensor_map(&w2map, l2w);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (B + TB - 1) / TB;
   actor_moe_kernel<TB>
       <<<tiles * CLUSTER, THREADS, Smem<TB>::bytes, st>>>(
-          s, gate_w, l1w, l1b, l2w, l2b, dw, db, mw, mb, lw, lb, disc, mu,
-          log_std, gate, B);
+          s, gate_w, l1w, l1b, l2b, dw, db, mw, mb, lw, lb, disc, mu,
+          log_std, gate, B, w2map);
   return static_cast<int>(cudaGetLastError());
 }
 
