@@ -13,8 +13,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   3. parity on the card: each kernel against its plain PyTorch version at
      the main path's shapes and a ragged batch (rtol 1e-4, atol 1e-5), the
      actor also with heads, biases and gate set so that both log_std clips,
-     the saturated tanh and a peaked gate are reached; ``fused_mlp`` also
-     with bf16 input (3e-2); ``sumtree`` bitwise (float64 sums of final
+     the saturated tanh and a peaked gate are reached; ``fused_mlp`` at
+     [448]->3, [4096]->52, [28672]->52 and ragged B, also with bf16 input
+     (3e-2); ``sumtree`` bitwise (float64 sums of final
      children) at caps 1, 8, 100, 257 and 100,000, N 1 to 1,500, with
      duplicates and a scalar broadcast; ``sumtree_sample`` (the device PER's descent)
      bitwise against its plain version and the host ``SumTree`` walk; the
@@ -26,14 +27,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      Sq != Sk, a window with Sq > Sk, unaligned views) and the LM prefill
      shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2);
      ``ssm_scan`` at Jamba's
-     prefill shape and ragged ones (rtol/atol 1e-4 on y and the final
-     state);
+     prefill shape, ragged ones and S = 2,048 (rtol/atol 1e-4 on y and the
+     final state);
   4. timing: device time of each kernel and of its plain version (200
      calls replayed from a CUDA graph, between CUDA events; the plain
      ``sumtree`` synchronises, so its eager time; the plain ``ssm_scan``,
      a loop of S steps, is 2 calls in a graph replayed 100 times and 10
      eager calls), the eager call time with the host's work, the least
-     time the card could take, and for ``flash_attention`` (the LM prefill
+     time the card could take (bytes at the memory rate, operations at
+     the fp32 or fp16 rate, and for ``ssm_scan`` the exponentials at the
+     special-function rate of the card's SMs at their maximum clock), and
+     for ``flash_attention`` (the LM prefill
      shape in fp16, bf16 and fp32, and sequence 2048 in fp16) PyTorch's
      ``scaled_dot_product_attention`` on the same inputs; ``actor_moe`` at
      B = 64, 192 and 448, ``sumtree`` at random N = 64, 256, 448 and at
@@ -92,6 +96,11 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain: fp32, other sum order
 PEAK_FP32_FLOPS = 67e12
 PEAK_HALF_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# special-function unit results (ex2, rcp, ...) a clock on each SM of a
+# compute-capability 9.0 card (CUDA C++ Programming Guide, arithmetic
+# instruction throughput); times the SM count and the maximum SM clock
+# read on the card, the least time of the exponentials
+SFU_PER_SM_CLOCK = 16
 EPISODES, N_ENVS, NODE, SEED = 4613, 64, 3, 0
 # The default Eq.-67 threshold (0.05) never opens the screening gate in this
 # cell, in the JAX reference as in the port (scripts/gate_check.py, both on
@@ -157,7 +166,7 @@ ATTN_LM = (4, 32, 8, 512, 512, 128, True, 0)
 ATTN_2048 = (1, 32, 8, 2048, 2048, 128, True, 0)   # the paper's seq_len
 ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
 SSM_CASES = [(4, 512, 8192, 16), (2, 33, 200, 16), (3, 1, 8, 5),
-             (1, 200, 40, 8)]
+             (1, 200, 40, 8), (2, 17, 130, 13), (1, 2048, 1024, 16)]
 
 
 def log(msg: str) -> None:
@@ -249,10 +258,22 @@ def load_floor(proc, lib: str):
     return launch
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+SFU_RATE = None   # results a second, set from the card in main()
+
+
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
+             sfu_ops: float = 0.0):
+    """The least time of a call (ms), what bounds it ("operations" or
+    "bytes") and which term: "fp32" or "half" (the flops at ``peak``),
+    "sfu" (``sfu_ops`` special-function results at ``SFU_RATE``) or
+    "bytes"."""
+    terms = {"fp32" if peak == PEAK_FP32_FLOPS else "half": flops / peak,
+             "bytes": nbytes / PEAK_BYTES_S}
+    if sfu_ops:
+        terms["sfu"] = sfu_ops / SFU_RATE
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def actor_work(b: int, w_bytes: int) -> tuple:
@@ -316,11 +337,13 @@ def attention_work(B, H, Hk, Sq, Sk, hd, causal, window, elt) -> tuple:
 
 def ssm_work(B, S, D, N) -> tuple:
     """The same for one ``ssm_scan`` call: per (b, t, d, n) one product for
-    dt * a, the exponential, two products and a sum for h, a product and a
-    sum for y; per (b, t, d) dt * x; dt, x and y, B and C, A and the final
-    state each once, in float32."""
-    flops = B * S * D * (7.0 * N + 1)
-    return flops, 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N)
+    dt * a, two products and a sum for h, a product and a sum for y, and
+    one exponential (a special-function result, the third element); per
+    (b, t, d) dt * x; dt, x and y, B and C, A and the final state each
+    once, in float32."""
+    flops = B * S * D * (6.0 * N + 1)
+    return (flops, 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N),
+            float(B * S * D * N))
 
 
 def main() -> None:
@@ -363,6 +386,17 @@ def main() -> None:
     print(card, flush=True)
     dev = device_mod.resolve("cuda")
     kind = torch.cuda.get_device_name(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    if not clock.isdigit():
+        fail(f"nvidia-smi gave no maximum SM clock: {clock!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global SFU_RATE
+    SFU_RATE = SFU_PER_SM_CLOCK * sms * int(clock) * 1e6
+    log(f"{sms} SMs, maximum SM clock {clock} MHz: {SFU_RATE:.4e} "
+        "special-function results a second")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s); TF32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
@@ -541,7 +575,8 @@ def main() -> None:
         mlp_ws[d_out] = [torch.randn(shape, generator=gen, device=dev) * 0.1
                          for shape in ((82, 128), (128,), (128, 64), (64,),
                                        (64, d_out), (d_out,))]
-    for b, d_out in ((448, 3), (4096, 52), (33, 3), (33, 52)):
+    for b, d_out in ((448, 3), (4096, 52), (28672, 52), (33, 3), (33, 52),
+                     (17, 3), (4225, 52)):
         for dtype, rtol, atol in ((torch.float32, RTOL, ATOL),
                                   (torch.bfloat16, 3e-2, 3e-2)):
             x = torch.randn((b, 82), generator=gen, device=dev).to(dtype)
@@ -659,10 +694,11 @@ def main() -> None:
                                  replays=200 // plain_calls) \
                 if plain_in_graph else plain_call
             library_ms = None if library is None else device_ms(library)
-        bnd, by = bound_ms(*work, peak=peak)
-        timings[key] = (ms, plain_ms, bnd, by, call, library_ms)
+        bnd, by, term = bound_ms(*work[:2], peak=peak,
+                                 sfu_ops=work[2] if len(work) > 2 else 0.0)
+        timings[key] = (ms, plain_ms, bnd, by, term, call, library_ms)
         log(f"time {key[0]} {shape}: ms {ms:.5f} plain_ms {plain_ms:.5f} "
-            f"bound_us {1e3 * bnd:.4f} bound_by {by} library_ms "
+            f"bound_us {1e3 * bnd:.4f} bound_by {by} ({term}) library_ms "
             f"{library_ms} | eager call_ms {call:.5f} plain_call_ms "
             f"{plain_call:.5f}")
 
@@ -1163,14 +1199,14 @@ def main() -> None:
              "a", "q[4,32,512,128],kv[4,8,512,128],fp16,causal", lm_counts),
             ("ssm_scan", "src/repro/kernels/ssm_scan.py:66", "b",
              "[4,512,8192],N=16,fp32", lm_counts)):
-        ms, plain, bnd, by, call, library_ms = timings[(name, key)]
+        ms, plain, bnd, by, term, call, library_ms = timings[(name, key)]
         source = src + ("policy_mlp.cu" if name == "fused_mlp"
                         else name + ".cu")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             shape=shape, launches=path_counts[name], max_abs_err=errs[name],
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            library_ms=library_ms, call_ms=call))
+            bound_term=term, library_ms=library_ms, call_ms=call))
     print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,7 +99,7 @@ def main():
                 lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True))
             flops, nbytes = attention_work(*shape, q.element_size())
-            bnd, by = bound_ms(flops, nbytes, peak=PEAK_HALF_FLOPS)
+            bnd, by, _ = bound_ms(flops, nbytes, peak=PEAK_HALF_FLOPS)
             print(json.dumps(dict(
                 round=rnd, warps=warps, bq=16 * warps, shape=name,
                 dtype=str(dt)[6:], ms=ms, sdpa_ms=lib_ms, bound_ms=bnd,

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the ``sumtree`` and ``actor_moe`` kernels spend their time, phase by
-phase, on one card (the machine has no ``ncu``).
+"""Where the ``sumtree``, ``actor_moe``, ``fused_mlp`` and ``ssm_scan``
+kernels spend their time, phase by phase, on one card (the machine has no
+``ncu``).
 
-Copies ``csrc/sumtree.cu`` and ``csrc/actor_moe.cu`` into the git-ignored
+Copies the kernels' sources (``csrc/sumtree.cu``, ``actor_moe.cu``,
+``policy_mlp.cu``, ``ssm_scan.cu``) into the git-ignored
 ``experiments/dse/kernel_phases/``, inserts ``clock64()`` marks that thread
 0 of each block writes into a ``__device__`` array at the boundaries of the
 kernels' phases (the marks are anchored on the sources' own comments and
 statements, so an edited source fails here loudly), builds the copies with
-the repository's ``nvcc`` flags and runs them at the search's shapes.
+the repository's ``nvcc`` flags and runs them at the paths' shapes.
 Prints, per shape, the SM cycles of each phase: for ``sumtree`` the one
-block's, for ``actor_moe`` the median and the maximum over the blocks.
+block's, for the others the median and the maximum over the blocks
+(``fused_mlp``: the block's first tile, then all its tiles; ``ssm_scan``:
+the loop's cycles summed over its stages as copy and wait, compute and the
+closing barrier), and the SM clock ``nvidia-smi`` reads after the runs.
 
-    python3 scripts/kernel_phases.py
+    python3 scripts/kernel_phases.py [--kernels sumtree actor_moe ...]
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -29,11 +35,13 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import sac  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.actor_moe import _flat_params  # noqa: E402
+from repro_torch.kernels.policy_mlp import fused_mlp_cuda  # noqa: E402
 
 OUT = ROOT / "experiments" / "dse" / "kernel_phases"
 MARKS = 16   # marks per block
 
-# (anchor, mark, after): the mark goes right after the anchor, or before it
+# (anchor, mark, after): the mark goes right after the anchor, or before
+# it; a mark is the index of a timestamp or a line of code
 SUMTREE = (
     ("sumtree", ("sort", "compact", "stage siblings", "level loop", "top")),
     [("  const K kcap = static_cast<K>(cap);\n", 0, True),
@@ -59,34 +67,86 @@ ACTOR = (
      ("  // 5. blend rows rank", 9, False),
      ("  mbar_wait(bars + BAR_RECV);\n", 10, True),
      ("    if (grow < B) gate[grow * E + t % E] = gs[t];\n  }\n", 11, True)])
+FIRST = "  if (tile == (int)blockIdx.x * G) MARK({});\n"   # the first tile's
+MLP = (
+    ("fused_mlp", ("issue copies", "x of tile", "wait W1", "layer 1 mma",
+                   "GELU 1 + barrier", "wait W2", "layer 2",
+                   "layer 3 + stores", "other tiles")),
+    [("  int tile = blockIdx.x * G + grp;\n", 0, True),
+     ("                   smem_addr(bars + 2)) : \"memory\");\n", 1, True),
+     ("    group_sync(grp);   // this tile's x has landed", FIRST.format(2),
+      False),
+     ("    mbar_wait(bars);\n", FIRST.format(3), True),
+     ("    mbar_wait(bars + 2);\n", FIRST.format(4), True),
+     ("    hidden_out(acc, sb1, c, nt1, hs1, L.sh1);\n    group_sync(grp);\n",
+      FIRST.format(5), True),
+     ("    mbar_wait(bars + 1);\n", FIRST.format(6), True),
+     ("    hidden_out(acc, sb2, c, nt2, hs2, L.sh2);\n    group_sync(grp);\n",
+      FIRST.format(7), True),
+     ("            store_f(y, (size_t)r * dout + cc, acc[j][i] + sb3[cc]);\n"
+      "        }\n      }\n    }\n", FIRST.format(8), True),
+     ("  }\n  // a group without tiles still has copies", 9, False)])
+# ssm_scan: timestamps 0-3 and, in slots 4-6, the loop's cycles summed over
+# its stages
+SSM = (
+    ("ssm_scan", ("A and h0", "loop", "final state")),
+    [("  const int chunks = (S + TCH - 1) / TCH;\n", 0, True),
+     ("    h[i] = (on && h0 != nullptr) ? h0[((long long)b * D + d) * N + n]"
+      " : 0.0f;\n  }\n", 1, True),
+     ("  for (int c = 0; c < chunks; ++c) {\n",
+      "  long long cyc_copy = 0, cyc_comp = 0, cyc_sync = 0;\n", False),
+     ("  for (int c = 0; c < chunks; ++c) {\n",
+      "    long long t0_ = clock64();\n", True),
+     ("    __syncthreads();   // every thread's copies of chunk c have landed\n",
+      "    long long t1_ = clock64(); cyc_copy += t1_ - t0_;\n", True),
+     ("    __syncthreads();   // this stage is read before chunk c + 2",
+      "    long long t2_ = clock64(); cyc_comp += t2_ - t1_;\n", False),
+     ("    __syncthreads();   // this stage is read before chunk c + 2 lands"
+      " in it\n", "    cyc_sync += clock64() - t2_;\n", True),
+     ("  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");   // S = 0",
+      "  MARK(2);\n  if (threadIdx.x == 0) { long long* m_ = "
+      "g_marks_ssm_scan + BLOCK * 16;\n    m_[4] = cyc_copy; m_[5] = cyc_comp;"
+      " m_[6] = cyc_sync; }\n", False),
+     ("      if (n < N) h_out[((long long)b * D + d) * N + n] = h[i];\n"
+      "    }\n  }\n", 3, True)])
+
+
+SOURCES = {"sumtree": "sumtree", "actor_moe": "actor_moe",
+           "fused_mlp": "policy_mlp", "ssm_scan": "ssm_scan"}
 
 
 def instrument(name: str, anchors) -> Path:
-    src = (build.CSRC / f"{name}.cu").read_text()
+    src = (build.CSRC / f"{SOURCES[name]}.cu").read_text()
     head = (f"__device__ long long g_marks_{name}[65536 * {MARKS}];\n"
+            "#define BLOCK (blockIdx.x + gridDim.x * blockIdx.y)\n"
             f"#define MARK(i) do {{ if (threadIdx.x == 0) g_marks_{name}"
-            f"[blockIdx.x * {MARKS} + (i)] = clock64(); }} while (0)\n"
+            f"[BLOCK * {MARKS} + (i)] = clock64(); }} while (0)\n"
             f'extern "C" int read_marks_{name}(long long* h, int n) {{ '
             f"return (int)cudaMemcpyFromSymbol(h, g_marks_{name}, "
             f"n * sizeof(long long)); }}\n")
     src = src.replace("namespace {", head + "namespace {", 1)
     for anchor, i, after in anchors:
         if src.count(anchor) != 1:
-            sys.exit(f"{name}.cu: anchor for mark {i} not found once: "
+            sys.exit(f"{name}.cu: anchor for mark {i!r} not found once: "
                      f"{anchor!r}")
-        src = src.replace(anchor, anchor + f"  MARK({i});\n" if after
-                          else f"  MARK({i});\n" + anchor)
+        code = f"  MARK({i});\n" if isinstance(i, int) else i
+        src = src.replace(anchor, anchor + code if after else code + anchor)
     path = OUT / f"{name}.cu"
     path.write_text(src)
     return path
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="+", default=list(SOURCES),
+                    choices=list(SOURCES))
+    chosen = ap.parse_args().kernels
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     OUT.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
-    for (name, _), anchors in (SUMTREE, ACTOR):
+    for (name, _), anchors in (k for k in (SUMTREE, ACTOR, MLP, SSM)
+                               if k[0][0] in chosen):
         src = instrument(name, anchors)
         obj = OUT / f"{name}.o"
         objs.append(str(obj))
@@ -98,23 +158,49 @@ def main() -> None:
     subprocess.check_call([build.nvcc(), *build.NVCC_FLAGS[:2], "-shared",
                            "-o", str(lib_path), *objs])
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("sumtree_set_many", "actor_moe_forward"):
-        getattr(lib, name).argtypes = build.SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
+    for name in ("sumtree_set_many", "actor_moe_forward", "fused_mlp_forward",
+                 "ssm_scan_forward"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = build.SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def marks(name, blocks, n):
+    def marks(name, blocks, n, raw=False):
         h = np.zeros(blocks * MARKS, np.int64)
         reader = getattr(lib, f"read_marks_{name}")
         reader.argtypes = [ctypes.c_void_p, ctypes.c_int]
         if reader(h.ctypes.data, h.size) != 0:
             sys.exit("cudaMemcpyFromSymbol failed")
-        return np.diff(h.reshape(blocks, MARKS)[:, :n + 1], axis=1)
+        h = h.reshape(blocks, MARKS)
+        return h if raw else np.diff(h[:, :n + 1], axis=1)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if "sumtree" in chosen:
+        sumtree_phases(lib, dev, stream, marks)
+    if "actor_moe" in chosen:
+        actor_phases(lib, dev, stream, marks)
+    if "fused_mlp" in chosen:
+        mlp_phases(lib, dev, stream, marks)
+    if "ssm_scan" in chosen:
+        ssm_phases(lib, dev, stream, marks)
+    print("SM clock after the runs: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip())
+
+
+def summary(label, d, labels):
+    med, mx = np.median(d, axis=0), d.max(axis=0)
+    print(f"{label} ({len(d)} blocks): median total "
+          f"{int(np.median(d.sum(axis=1)))} cycles; " + ", ".join(
+              f"{lab} {int(m)} (max {int(x)})" for lab, m, x in
+              zip(labels, med, mx)))
+
+
+def sumtree_phases(lib, dev, stream, marks):
     cap = 100_000
     tree = torch.as_tensor(np.random.default_rng(1).random(2 * cap),
                            device=dev)
@@ -136,6 +222,9 @@ def main() -> None:
         d = marks("sumtree", 1, len(labels))[0]
         print(f"sumtree {shape}: total {int(d.sum())} cycles; " + ", ".join(
             f"{lab} {int(c)}" for lab, c in zip(labels, d)))
+
+
+def actor_phases(lib, dev, stream, marks):
     actor = sac.create(0, dev).params.actor
     weights = _flat_params(actor)
     labels = ACTOR[0][1]
@@ -148,12 +237,55 @@ def main() -> None:
                 *(o.data_ptr() for o in outs), b, stream), "actor_moe")
         torch.cuda.synchronize()
         blocks = -(-b // (8 if b <= 128 else 16)) * 8
-        d = marks("actor_moe", blocks, len(labels))
-        med, mx = np.median(d, axis=0), d.max(axis=0)
-        print(f"actor_moe B={b} ({blocks} blocks): median total "
-              f"{int(np.median(d.sum(axis=1)))} cycles; " + ", ".join(
-                  f"{lab} {int(m)} (max {int(x)})" for lab, m, x in
-                  zip(labels, med, mx)))
+        summary(f"actor_moe B={b}", marks("actor_moe", blocks, len(labels)),
+                labels)
+
+
+def mlp_phases(lib, dev, stream, marks):
+    labels = MLP[0][1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, d_out in ((448, 3), (4096, 52), (28672, 52)):
+        ws = [torch.randn(s, generator=gen, device=dev) * 0.1
+              for s in ((82, 128), (128,), (128, 64), (64,), (64, d_out),
+                        (d_out,))]
+        x = torch.randn((b, 82), generator=gen, device=dev)
+        y = torch.empty((b, d_out), device=dev)
+        for _ in range(5):
+            build.check(lib.fused_mlp_forward(
+                x.data_ptr(), *(w.data_ptr() for w in ws), y.data_ptr(), b,
+                82, 128, 64, d_out, 0, stream), "fused_mlp")
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            torch.testing.assert_close(y, fused_mlp_cuda(x, *ws))
+        tiles = -(-b // 16)
+        groups = 1 if tiles <= sms else 2 if tiles <= 2 * sms else 4
+        blocks = min(-(-tiles // groups), sms)
+        summary(f"fused_mlp [{b},82]->{d_out} ({groups} groups a CTA)",
+                marks("fused_mlp", blocks, len(labels)), labels)
+
+
+def ssm_phases(lib, dev, stream, marks):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, D, N = 4, 512, 8192, 16
+    dt = torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3
+    bc = [torch.randn((B, S, N), generator=gen, device=dev) for _ in "bc"]
+    x = torch.randn((B, S, D), generator=gen, device=dev)
+    a = -torch.exp(0.5 * torch.randn((D, N), generator=gen, device=dev))
+    y = torch.empty_like(x)
+    h = torch.empty((B, D, N), device=dev)
+    for _ in range(5):
+        build.check(lib.ssm_scan_forward(
+            dt.data_ptr(), bc[0].data_ptr(), bc[1].data_ptr(), x.data_ptr(),
+            a.data_ptr(), None, y.data_ptr(), h.data_ptr(), B, S, D, N,
+            stream), "ssm_scan")
+    torch.cuda.synchronize()
+    blocks = -(-D // 128) * B     # 128 channels a block
+    m = marks("ssm_scan", blocks, 6, raw=True)
+    summary(f"ssm_scan [{B},{S},{D}] N={N}",
+            np.concatenate([np.diff(m[:, :4], axis=1), m[:, 4:7]], axis=1),
+            SSM[0][1] + ("loop: copy and wait", "loop: compute",
+                         "loop: closing barrier"))
 
 
 if __name__ == "__main__":

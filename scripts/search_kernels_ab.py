@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Check and time the search path's ``sumtree`` and ``actor_moe`` kernels of
-several source trees on one card.
+"""Check and time the port's CUDA kernels of several source trees on one card.
 
 Each run is a fresh process that imports ``repro_torch`` from one tree (a
 checkout of the repository, for example the parent commit unpacked with
 ``git archive`` into a git-ignored directory), builds its kernels (with
 ``-D`` defines where the run names them, into a library of their own),
-holds both kernels against their plain versions (``sumtree`` bitwise at caps
-1 to 100,000 and N 1 to 1,025; ``actor_moe`` at rtol 1e-4 / atol 1e-5 at B 1
-to 4,096, and a bitwise repeat) and times them with ``chip_smoke.py``'s
-harness: 200 calls replayed from a CUDA graph between CUDA events, at the
-shapes the search issues (``sumtree``: random N = 64, 256, 448 and
-contiguous scalar inserts of 64 and 448 at cap 100,000; ``actor_moe``: B =
-64, 192, 448 and 4,096), beside an empty kernel's launch in the same
-harness.  One JSON line per run; runs go in the order given, so that two
-trees alternate on one card.
+holds the chosen kernels (``--kernels``) against their plain versions and
+times them with ``chip_smoke.py``'s harness: 200 calls replayed from a CUDA
+graph between CUDA events, beside an empty kernel's launch in the same
+harness.  The kernels, their checks and their timed shapes:
+
+- ``sumtree``: bitwise against the plain version and the host ``SumTree``
+  at caps 1 to 100,000 and N 1 to 1,025; random N = 64, 256, 448 and
+  contiguous scalar inserts of 64 and 448 at cap 100,000;
+- ``actor_moe``: rtol 1e-4 / atol 1e-5 at B 1 to 4,096 and a bitwise
+  repeat; B = 64, 192, 448 and 4,096;
+- ``fused_mlp``: fp32 at rtol 1e-4 / atol 1e-5 and bf16 input at 3e-2, at
+  B 1 to 28,672 (each side of the 16-row tile and of the launch's switch
+  from 1 to 2 to 4 groups a CTA on 132 SMs), one launch a call and a
+  bitwise repeat; [448,82]->3 in fp32 and bf16, [4096,82]->52 and
+  [28672,82]->52 in fp32;
+- ``ssm_scan``: rtol/atol 1e-4 on y and the final state, with and without
+  h0, at S 1 to 2,048 (each side of the 16-step stage), ragged D and N <
+  16, one launch a call and a bitwise repeat; Jamba's [4,512,8192] N = 16.
+
+One JSON line per run; runs go in the order given, so that two trees
+alternate on one card.
 
     python3 scripts/search_kernels_ab.py --tree P=experiments/dse/parent \\
         --tree C=. --runs P C C:ACTOR_TB=8 C:ACTOR_TB=16 C P
+    python3 scripts/search_kernels_ab.py --kernels fused_mlp ssm_scan \\
+        --tree P=experiments/dse/parent --tree C=. --runs P C C P
 """
 from __future__ import annotations
 
@@ -32,98 +45,170 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = r"""
 import json, os, sys
 import numpy as np, torch
-tree_dir, root, defines = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+tree_dir, root = sys.argv[1], sys.argv[2]
+defines, kernels = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 sys.path.insert(0, os.path.join(tree_dir, "src"))
 sys.path.insert(0, root)
 import chip_smoke as cs
 from repro_torch.core import replay, sac
-from repro_torch.kernels import actor_moe, build, sumtree
+from repro_torch.kernels import (actor_moe, build, policy_mlp, ssm_scan,
+                                  sumtree)
 
 dev = torch.device("cuda")
 lib = build.build(verbose=True, defines=defines)
 build._lib = build.load(lib)
-# -Xptxas -v of the two sources (empty when the library was already built)
+# -Xptxas -v of the chosen kernels' sources (empty when the library was
+# already built)
+srcs = {"sumtree": "sumtree.cu", "actor_moe": "actor_moe.cu",
+        "fused_mlp": "policy_mlp.cu", "ssm_scan": "ssm_scan.cu"}
 ptxas = [sec for sec in build.last_build_log.split("== ")
-         if sec.startswith(("nvcc sumtree.cu", "nvcc actor_moe.cu"))]
+         if sec.startswith(tuple("nvcc " + srcs[k] for k in kernels))]
 out = dict(tree=tree_dir, defines=defines, lib=lib.name)
-
-# parity: sumtree bitwise against the plain version and the host SumTree
-rng = np.random.default_rng(0)
-cases = 0
-for cap in (1, 8, 100, 257, 100_000):
-    base = rng.random(2 * cap)
-    for n in (1, 31, 32, 33, 448, 1024, 1025):
-        for kind in ("random", "one index", "ends"):
-            idx = rng.integers(0, cap, n)
-            if kind == "one index":
-                idx[:] = idx[0]
-            elif kind == "ends" and n >= 4:
-                idx[-1], idx[-2] = idx.min(), idx.max()
-                idx[n // 2] = cap
-            for vals in (rng.random(n), 0.25):
-                arr = np.ndim(vals) > 0
-                host = replay.SumTree(cap)
-                host.tree = base.copy()
-                keep = (idx >= 0) & (idx < cap)
-                host.set_many(idx[keep], vals[keep] if arr else vals)
-                got = torch.as_tensor(base, device=dev)
-                before = sumtree.launches
-                sumtree.sumtree_set_many_cuda(
-                    got, torch.as_tensor(idx, device=dev),
-                    torch.as_tensor(vals, device=dev) if arr else vals)
-                want = torch.as_tensor(base.copy())   # in range only
-                sumtree.sumtree_set_many_plain(
-                    want, torch.as_tensor(idx[keep]),
-                    torch.as_tensor(vals[keep]) if arr else vals)
-                got = got.cpu().numpy()
-                if not (np.array_equal(got, host.tree)
-                        and np.array_equal(got, want.numpy())
-                        and sumtree.launches - before == -(-n // 1024)):
-                    sys.exit(f"sumtree cap {cap} N {n} {kind} array {arr}: "
-                             "not bitwise the host SumTree / plain version")
-                cases += 1
-out["sumtree_cases_bitwise"] = cases
-
-# parity: actor_moe against the plain version, one launch, bitwise repeat
-actor = sac.create(0, dev).params.actor
 gen = torch.Generator(device=dev).manual_seed(0)
-worst = 0.0
-for b in (1, 7, 8, 9, 33, 64, 192, 448, 4096):
-    s = torch.randn((b, 52), generator=gen, device=dev)
-    before = actor_moe.launches
-    got = actor_moe.actor_forward_cuda(actor, s)
-    again = actor_moe.actor_forward_cuda(actor, s)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        want = actor_moe.actor_forward_plain(actor, s)
-    for g, a, w in zip(got, again, want):
-        worst = max(worst, float((g - w).abs().max()))
-        if not (torch.allclose(g, w, rtol=1e-4, atol=1e-5)
-                and torch.equal(g, a)):
-            sys.exit(f"actor_moe B={b}: disagrees with the plain version "
-                     "or with itself")
-    if actor_moe.launches - before != 2:
-        sys.exit(f"actor_moe B={b}: not one launch per call")
-out["actor_max_abs_err"] = worst
+t = {}   # times (us), device time per call from 20 calls x 10 replays
 
-# times (us), device time per call from a graph of 20 calls x 10 replays
-t = {}
-cap = 100_000
-tree = torch.as_tensor(np.random.default_rng(1).random(2 * cap), device=dev)
-for n in (64, 256, 448):
-    idx = torch.as_tensor(np.random.default_rng(n).integers(0, cap, n),
-                          device=dev)
-    vals = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
-    t[f"sumtree_N{n}"] = 1e3 * cs.device_ms(
-        lambda: sumtree.sumtree_set_many_cuda(tree, idx, vals))
-for n in (64, 448):
-    idx = torch.as_tensor((cap - 17 + np.arange(n)) % cap, device=dev)
-    t[f"sumtree_insert{n}"] = 1e3 * cs.device_ms(
-        lambda: sumtree.sumtree_set_many_cuda(tree, idx, 0.5))
-for b in (64, 192, 448, 4096):
-    s = torch.randn((b, 52), generator=gen, device=dev)
-    t[f"actor_B{b}"] = 1e3 * cs.device_ms(
-        lambda: actor_moe.actor_forward_cuda(actor, s))
+
+def once_repeatable(name, module, call, want, rtol, atol):
+    # one launch a call, the plain version's values, bitwise repeat;
+    # returns the max abs error
+    before = module.launches
+    with torch.no_grad():
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        want = want()
+    if module.launches - before != 2:
+        sys.exit(f"{name}: not one launch per call")
+    got, again, want = ((v,) if torch.is_tensor(v) else v
+                        for v in (got, again, want))
+    worst = 0.0
+    for g, a, w in zip(got, again, want):
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+        if not (g.dtype == w.dtype and torch.allclose(
+                g.float(), w.float(), rtol=rtol, atol=atol)
+                and torch.equal(g, a)):
+            sys.exit(f"{name}: disagrees with the plain version (max abs "
+                     f"err {worst:.3e}) or with itself")
+    return worst
+
+
+if "sumtree" in kernels:
+    # sumtree bitwise against the plain version and the host SumTree
+    rng = np.random.default_rng(0)
+    cases = 0
+    for cap in (1, 8, 100, 257, 100_000):
+        base = rng.random(2 * cap)
+        for n in (1, 31, 32, 33, 448, 1024, 1025):
+            for kind in ("random", "one index", "ends"):
+                idx = rng.integers(0, cap, n)
+                if kind == "one index":
+                    idx[:] = idx[0]
+                elif kind == "ends" and n >= 4:
+                    idx[-1], idx[-2] = idx.min(), idx.max()
+                    idx[n // 2] = cap
+                for vals in (rng.random(n), 0.25):
+                    arr = np.ndim(vals) > 0
+                    host = replay.SumTree(cap)
+                    host.tree = base.copy()
+                    keep = (idx >= 0) & (idx < cap)
+                    host.set_many(idx[keep], vals[keep] if arr else vals)
+                    got = torch.as_tensor(base, device=dev)
+                    before = sumtree.launches
+                    sumtree.sumtree_set_many_cuda(
+                        got, torch.as_tensor(idx, device=dev),
+                        torch.as_tensor(vals, device=dev) if arr else vals)
+                    want = torch.as_tensor(base.copy())   # in range only
+                    sumtree.sumtree_set_many_plain(
+                        want, torch.as_tensor(idx[keep]),
+                        torch.as_tensor(vals[keep]) if arr else vals)
+                    got = got.cpu().numpy()
+                    if not (np.array_equal(got, host.tree)
+                            and np.array_equal(got, want.numpy())
+                            and sumtree.launches - before == -(-n // 1024)):
+                        sys.exit(f"sumtree cap {cap} N {n} {kind} array "
+                                 f"{arr}: not bitwise the host SumTree / "
+                                 "plain version")
+                    cases += 1
+    out["sumtree_cases_bitwise"] = cases
+    cap = 100_000
+    tree = torch.as_tensor(np.random.default_rng(1).random(2 * cap),
+                           device=dev)
+    for n in (64, 256, 448):
+        idx = torch.as_tensor(np.random.default_rng(n).integers(0, cap, n),
+                              device=dev)
+        vals = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        t[f"sumtree_N{n}"] = 1e3 * cs.device_ms(
+            lambda: sumtree.sumtree_set_many_cuda(tree, idx, vals))
+    for n in (64, 448):
+        idx = torch.as_tensor((cap - 17 + np.arange(n)) % cap, device=dev)
+        t[f"sumtree_insert{n}"] = 1e3 * cs.device_ms(
+            lambda: sumtree.sumtree_set_many_cuda(tree, idx, 0.5))
+
+if "actor_moe" in kernels:
+    actor = sac.create(0, dev).params.actor
+    out["actor_max_abs_err"] = max(
+        once_repeatable(f"actor_moe B={b}", actor_moe,
+                        lambda: actor_moe.actor_forward_cuda(actor, s),
+                        lambda: actor_moe.actor_forward_plain(actor, s),
+                        1e-4, 1e-5)
+        for b in (1, 7, 8, 9, 33, 64, 192, 448, 4096)
+        for s in [torch.randn((b, 52), generator=gen, device=dev)])
+    for b in (64, 192, 448, 4096):
+        s = torch.randn((b, 52), generator=gen, device=dev)
+        t[f"actor_B{b}"] = 1e3 * cs.device_ms(
+            lambda: actor_moe.actor_forward_cuda(actor, s))
+
+if "fused_mlp" in kernels:
+    mlp_ws = {d: [torch.randn(shape, generator=gen, device=dev) * 0.1
+                  for shape in ((82, 128), (128,), (128, 64), (64,),
+                                (64, d), (d,))] for d in (3, 52)}
+    worst = 0.0
+    # each side of the 16-row tile and of the switch from 1 to 2 to 4
+    # groups a CTA (132 and 264 tiles), and the paths' shapes
+    for b, d in ((1, 3), (15, 3), (16, 3), (17, 3), (448, 3), (33, 52),
+                 (2112, 52), (2113, 52), (4096, 52), (4224, 52), (4225, 52),
+                 (28672, 52)):
+        for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-5),
+                                  (torch.bfloat16, 3e-2, 3e-2)):
+            x = torch.randn((b, 82), generator=gen, device=dev).to(dtype)
+            err = once_repeatable(
+                f"fused_mlp [{b},82]->{d} {dtype}", policy_mlp,
+                lambda: policy_mlp.fused_mlp_cuda(x, *mlp_ws[d]),
+                lambda: policy_mlp.fused_mlp_plain(x, *mlp_ws[d]), rtol,
+                atol)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    out["fused_mlp_max_abs_err"] = worst
+    for b, d, dtype in ((448, 3, torch.float32), (448, 3, torch.bfloat16),
+                        (4096, 52, torch.float32),
+                        (28672, 52, torch.float32)):
+        x = torch.randn((b, 82), generator=gen, device=dev).to(dtype)
+        t[f"fused_mlp_B{b}_{d}_{str(dtype)[6:]}"] = 1e3 * cs.device_ms(
+            lambda: policy_mlp.fused_mlp_cuda(x, *mlp_ws[d]))
+
+if "ssm_scan" in kernels:
+    def ssm_inputs(B, S, D, N):
+        return (torch.rand((B, S, D), generator=gen, device=dev) * 0.1
+                + 1e-3,
+                torch.randn((B, S, N), generator=gen, device=dev),
+                torch.randn((B, S, N), generator=gen, device=dev),
+                torch.randn((B, S, D), generator=gen, device=dev),
+                -torch.exp(0.5 * torch.randn((D, N), generator=gen,
+                                             device=dev)))
+    worst = 0.0
+    for B, S, D, N in ((4, 512, 8192, 16), (2, 33, 200, 16), (3, 1, 8, 5),
+                       (1, 200, 40, 8), (1, 2048, 128, 16), (2, 31, 64, 4),
+                       (2, 32, 64, 16), (2, 64, 65, 16), (1, 65, 130, 13)):
+        ins = ssm_inputs(B, S, D, N)
+        for h0 in (None, torch.randn((B, D, N), generator=gen, device=dev)):
+            worst = max(worst, once_repeatable(
+                f"ssm_scan {(B, S, D, N)} h0={h0 is not None}", ssm_scan,
+                lambda: ssm_scan.ssm_scan_cuda(*ins, h0),
+                lambda: ssm_scan.ssm_scan_plain(*ins, h0), 1e-4, 1e-4))
+    out["ssm_scan_max_abs_err"] = worst
+    ins = ssm_inputs(4, 512, 8192, 16)
+    t["ssm_scan_4x512x8192"] = 1e3 * cs.device_ms(
+        lambda: ssm_scan.ssm_scan_cuda(*ins))
+
 proc, floor_lib = cs.start_floor_build(
     build.nvcc(), build.NVCC_FLAGS, os.path.join(root, "experiments", "dse",
                                                  "search_kernels_ab"))
@@ -140,6 +225,9 @@ def main() -> None:
                     metavar="LABEL=PATH")
     ap.add_argument("--runs", nargs="+", required=True,
                     metavar="LABEL[:NAME=VALUE,...]")
+    ap.add_argument("--kernels", nargs="+", default=["sumtree", "actor_moe"],
+                    choices=["sumtree", "actor_moe", "fused_mlp",
+                             "ssm_scan"])
     a = ap.parse_args()
     trees = dict(t.split("=", 1) for t in a.tree)
     card = subprocess.run(
@@ -151,7 +239,8 @@ def main() -> None:
         defines = [d for d in defs.split(",") if d]
         out = subprocess.run(
             [sys.executable, "-c", RUN, os.path.abspath(trees[label]), ROOT,
-             json.dumps(defines)], capture_output=True, text=True,
+             json.dumps(defines), json.dumps(a.kernels)],
+            capture_output=True, text=True,
             timeout=900)
         if out.returncode != 0:
             sys.exit(f"run {i} ({run}) failed:\n{out.stdout[-2000:]}\n"

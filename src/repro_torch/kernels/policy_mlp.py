@@ -16,7 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-MAX_WIDTH = 128   # h1, h2 and d_out the CUDA kernel takes (32 lanes x 4)
+MAX_WIDTH = 128   # h1, h2 and d_out the CUDA kernel takes (16 n-tiles of 8)
+MAX_D_IN = 256    # d_in the CUDA kernel takes (rows of W1's tensor-map box)
 
 launches = 0   # CUDA launches of the kernel (one per wrapper call on CUDA)
 
@@ -47,9 +48,13 @@ def fused_mlp_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
                          f"bfloat16 tensor, got {x.dtype} {tuple(x.shape)}")
     b, d_in = x.shape
     h1, h2, d_out = w1.shape[-1], w2.shape[-1], w3.shape[-1]
-    if max(h1, h2, d_out) > MAX_WIDTH:
-        raise ValueError(f"fused_mlp: layer widths {(h1, h2, d_out)} exceed "
-                         f"the kernel's {MAX_WIDTH}")
+    if max(h1, h2, d_out) > MAX_WIDTH or d_in > MAX_D_IN:
+        raise ValueError(f"fused_mlp: widths {(d_in, h1, h2, d_out)} exceed "
+                         f"the kernel's d_in <= {MAX_D_IN}, h1, h2, d_out "
+                         f"<= {MAX_WIDTH}")
+    if h1 % 4 or h2 % 4:
+        raise ValueError(f"fused_mlp: h1 and h2 must be multiples of 4 "
+                         f"(16-byte rows of W1 and W2), got {(h1, h2)}")
     shapes = ((d_in, h1), (h1,), (h1, h2), (h2,), (h2, d_out), (d_out,))
     for t, shape in zip(ws, shapes):
         if t.device != x.device or t.dtype != torch.float32 \
@@ -57,6 +62,12 @@ def fused_mlp_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
             raise ValueError(
                 f"fused_mlp: expected contiguous float32 {shape} on "
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("fused_mlp: w1 and w2 must be 16-byte aligned (the "
+                         "kernel copies them with tensor copies)")
+    if x.dtype == torch.bfloat16 and (d_in % 2 or x.data_ptr() % 4):
+        raise ValueError("fused_mlp: a bfloat16 x must be 4-byte aligned "
+                         "with an even d_in (the kernel copies bf16 pairs)")
     y = torch.empty((b, d_out), dtype=x.dtype, device=x.device)
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -321,8 +321,13 @@ def test_device_per_on_card_matches_cpu(dev):
         assert torch.equal(bufs[0].tree.cpu(), bufs[1].tree)
 
 
+# the paths' shapes, each side of the 16-row tile, and each side of the
+# launch's switch from 1 to 2 to 4 groups a CTA on 132 SMs (2,112 and
+# 4,224 rows)
 @pytest.mark.parametrize("b,d_out", [(448, 3), (4096, 52), (33, 3),
-                                     (33, 52), (1, 52)])
+                                     (33, 52), (1, 52), (16, 3), (17, 3),
+                                     (2112, 52), (2113, 52), (4224, 3),
+                                     (4225, 3), (28672, 52)])
 @pytest.mark.parametrize("dtype,rtol,atol", [
     (torch.float32, RTOL, ATOL), (torch.bfloat16, 3e-2, 3e-2)])
 def test_fused_mlp_kernel_matches_plain(dev, b, d_out, dtype, rtol, atol):
@@ -371,6 +376,13 @@ def test_new_wrappers_check_their_inputs(dev):
         policy_mlp.fused_mlp(torch.zeros((4, 81), device=dev), *ws)
     with pytest.raises(RuntimeError, match="no backward"):
         policy_mlp.fused_mlp(x, ws[0].requires_grad_(True), *ws[1:])
+    ws[0].requires_grad_(False)
+    flat = torch.zeros(4 * 82 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        policy_mlp.fused_mlp(flat[1:].view(4, 82), *ws)   # bf16 pairs
+    flat = torch.zeros(82 * 128 + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        policy_mlp.fused_mlp(x, flat[1:].view(82, 128), *ws[1:])
 
 
 def test_campaign_on_card_launches_every_kernel_and_resumes_bitwise(
@@ -484,9 +496,13 @@ def test_flash_attention_kernel_reads_strided_views(dev, layout, dtype):
     assert torch.equal(got, flash_attention.flash_attention(q, k, v))
 
 
+# the sweep's shapes, ragged D and N < 16 (16-byte and 4-byte copies),
+# S = 1, each side of the 16-step stage, and a long prefill
 @pytest.mark.parametrize("B,S,D,N", [(1, 128, 64, 8), (2, 256, 128, 16),
                                      (1, 64, 32, 4), (2, 33, 200, 16),
-                                     (3, 1, 8, 5), (4, 512, 1024, 16)])
+                                     (3, 1, 8, 5), (4, 512, 1024, 16),
+                                     (2, 15, 64, 16), (2, 16, 64, 16),
+                                     (2, 17, 130, 13), (1, 2048, 256, 16)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssm_scan_kernel_matches_plain(dev, B, S, D, N, with_h0):
     g = _gen(dev, S + D + N)
@@ -506,6 +522,34 @@ def test_ssm_scan_kernel_matches_plain(dev, B, S, D, N, with_h0):
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
     y2, h2 = ssm_scan.ssm_scan(dt, b_in, c_in, x, a, h0)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_ssm_scan_kernel_reads_unaligned_tensors(dev):
+    """Views that start off a 16-byte boundary take the kernel's 4-byte
+    copies: the same values as the plain version, one launch."""
+    g = _gen(dev, 5)
+    B, S, D, N = 2, 40, 64, 16
+
+    def shifted(shape, fill):
+        flat = torch.empty(int(np.prod(shape)) + 1, device=dev)
+        view = flat[1:].view(shape)
+        view.copy_(fill)
+        return view
+    dt = shifted((B, S, D), torch.rand((B, S, D), generator=g, device=dev)
+                 * 0.1 + 1e-3)
+    b_in, c_in = (shifted((B, S, N), torch.randn((B, S, N), generator=g,
+                                                 device=dev))
+                  for _ in range(2))
+    x = shifted((B, S, D), torch.randn((B, S, D), generator=g, device=dev))
+    a = -torch.exp(torch.randn((D, N), generator=g, device=dev) * 0.5)
+    assert dt.data_ptr() % 16 != 0
+    before = ssm_scan.launches
+    y, h = ssm_scan.ssm_scan(dt, b_in, c_in, x, a)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan.ssm_scan_plain(dt, b_in, c_in, x, a)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
 
 
 def test_lm_wrappers_check_their_inputs(dev):

@@ -345,3 +345,112 @@ def test_sumtree_kernel_algorithm_matches_host_oracle_bitwise(cap, n):
                 got = _emulate_sumtree_launch(
                     got, idx[part], vals[part] if np.ndim(vals) else vals)
             np.testing.assert_array_equal(got, host.tree, err_msg=label)
+
+
+def _tf32_round(a):
+    """``a`` rounded to TF32 (to nearest, ties away from zero) as
+    ``csrc/policy_mlp.cu`` rounds an operand's hi part: half a TF32 ulp
+    added to the bits, the 13 bits TF32 drops cleared."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _tf32_trunc(a):
+    """``a`` truncated to TF32, as the tensor cores read a TF32 operand."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _emulate_3xtf32_matmul(a, w, a_exact=False, three=True):
+    """``a @ w`` as the kernel's tensor-core layers compute it: each fp32
+    operand split as hi = tf32(x), lo = x - hi (truncated to TF32 by the
+    mma); per block of 8 k the products hi.hi into one fp32 accumulator
+    and hi.lo + lo.hi into another (lo.hi skipped when ``a`` is exact in
+    TF32, as a bf16 x is), each product exact, each block's sum rounded to
+    fp32 once; the two accumulators summed small first.  ``three=False``
+    is plain TF32 (hi.hi alone)."""
+    a, w = np.asarray(a, np.float32), np.asarray(w, np.float32)
+    ah, wh = _tf32_round(a), _tf32_round(w)
+    al, wl = _tf32_trunc(a - ah), _tf32_trunc(w - wh)
+    big = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    small = np.zeros_like(big)
+    for k0 in range(0, a.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        big = (big + ah[:, s].astype(np.float64)
+               @ wh[s].astype(np.float64)).astype(np.float32)
+        if three:
+            p = ah[:, s].astype(np.float64) @ wl[s].astype(np.float64)
+            if not a_exact:
+                p += al[:, s].astype(np.float64) @ wh[s].astype(np.float64)
+            small = (small + p).astype(np.float32)
+    return small + big
+
+
+def _emulate_fused_mlp(x, ws, bf16=False, three=True):
+    """numpy emulation of ``csrc/policy_mlp.cu``'s arithmetic: three
+    3xTF32 layers, each dot product from 0 with its bias added last in
+    fp32, tanh-GELU in fp32 between them; a bf16 x is exact in TF32 (its
+    lo part is 0)."""
+    def gelu(v):
+        v = v.astype(np.float32)
+        return np.float32(0.5) * v * (np.float32(1) + np.tanh(
+            np.float32(0.7978845608028654)
+            * (v + np.float32(0.044715) * v * v * v)))
+    w1, b1, w2, b2, w3, b3 = ws
+    h = gelu(_emulate_3xtf32_matmul(x, w1, a_exact=bf16, three=three) + b1)
+    h = gelu(_emulate_3xtf32_matmul(h, w2, three=three) + b2)
+    return _emulate_3xtf32_matmul(h, w3, three=three) + b3
+
+
+@pytest.mark.parametrize("b,d_out", [(1, 3), (17, 3), (448, 3), (16, 52),
+                                     (33, 52)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_kernel_arithmetic_matches_reference(b, d_out, dtype):
+    """The CUDA kernel's 3xTF32 arithmetic (``_emulate_fused_mlp``)
+    against the JAX oracle (``ref.fused_mlp_reference``) at the
+    tolerances the kernel is held to against its plain version on the
+    card: fp32 rtol 1e-4 / atol 1e-5, bf16 input and output 3e-2.  Plain
+    TF32 (one product) misses the fp32 tolerance, so the test tells the
+    two apart."""
+    ws = _mlp_weights(d_out)
+    x = RNG.normal(0, 1, (b, 82)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    x_in = np.asarray(jx.astype(jnp.float32))     # bf16-rounded when bf16
+    want = np.asarray(ref_ref.fused_mlp_reference(
+        jx, *(jnp.asarray(w) for w in ws)).astype(jnp.float32))
+    got = _emulate_fused_mlp(x_in, ws, bf16=dtype == "bfloat16")
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        plain_tf32 = _emulate_fused_mlp(x_in, ws, three=False)
+        assert not np.allclose(plain_tf32, want, rtol=RTOL, atol=ATOL)
+    else:
+        got = np.asarray(jnp.asarray(got, jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+
+
+def test_fused_mlp_wrapper_refuses_what_the_kernel_cannot_take():
+    """The CUDA wrapper's checks run before any launch: widths the
+    kernel's tensor maps cannot take (h1 or h2 not a multiple of 4, d_in
+    over 256), W1 or W2 off a 16-byte boundary, and a bf16 x with an odd
+    d_in are refused with a ValueError, and no launch is counted."""
+    ops.reset_launch_counts()
+    ws = [torch.as_tensor(w) for w in _mlp_weights(3)]
+    x = torch.zeros((4, 82))
+    odd = [torch.zeros(s) for s in ((82, 126), (126,), (126, 64), (64,),
+                                    (64, 3), (3,))]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="multiples of 4"):
+            policy_mlp.fused_mlp_cuda(x, *odd)
+        wide = [torch.zeros((257, 128))] + ws[1:]
+        with pytest.raises(ValueError, match="exceed"):
+            policy_mlp.fused_mlp_cuda(torch.zeros((4, 257)), *wide)
+        flat = torch.zeros(82 * 128 + 1)
+        shifted = flat[1:].view(82, 128)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            policy_mlp.fused_mlp_cuda(x, shifted, *ws[1:])
+        w1_odd = torch.zeros((81, 128))
+        with pytest.raises(ValueError, match="even d_in"):
+            policy_mlp.fused_mlp_cuda(torch.zeros((4, 81),
+                                                  dtype=torch.bfloat16),
+                                      w1_odd, *ws[1:])
+    assert ops.launch_counts()["fused_mlp"] == 0
