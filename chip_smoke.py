@@ -18,14 +18,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (3e-2); ``sumtree`` bitwise (float64 sums of final
      children) at caps 1, 8, 100, 257 and 100,000, N 1 to 1,500, with
      duplicates and a scalar broadcast; ``sumtree_sample`` (the device PER's descent)
-     bitwise against its plain version and the host ``SumTree`` walk; the
+     bitwise against its plain version and the host ``SumTree`` walk at
+     caps 1 to 200,000 (the kernel's rounds of 6 levels: a partial last
+     round at 8,193 and 100,000, whole ones at 200,000); the
      device PER's sampled indices and tree against the host ``SumTree`` on
      the same uniforms; the batched env step and
      the MPC rollouts on the card against the same on the CPU;
      ``flash_attention`` over the reference's sweep, ragged lengths, the
      tensor-core kernel's edges (hd 40 and 80, 1,000 keys, causal with
      Sq != Sk, a window with Sq > Sk, unaligned views) and the LM prefill
-     shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2);
+     shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2), and
+     sequence 2,048 in fp32;
      ``ssm_scan`` at Jamba's
      prefill shape, ragged ones and S = 2,048 (rtol/atol 1e-4 on y and the
      final state);
@@ -35,13 +38,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      a loop of S steps, is 2 calls in a graph replayed 100 times and 10
      eager calls), the eager call time with the host's work, the least
      time the card could take (bytes at the memory rate, operations at
-     the fp32 or fp16 rate, and for ``ssm_scan`` the exponentials at the
+     the fp32 or fp16 rate, three times the flops at the TF32 rate for the
+     kernels that compute fp32 products in 3xTF32 on the tensor cores, and
+     for ``ssm_scan`` the exponentials at the
      special-function rate of the card's SMs at their maximum clock), and
      for ``flash_attention`` (the LM prefill
-     shape in fp16, bf16 and fp32, and sequence 2048 in fp16) PyTorch's
-     ``scaled_dot_product_attention`` on the same inputs; ``actor_moe`` at
-     B = 64, 192 and 448, ``sumtree`` at random N = 64, 256, 448 and at
-     the inserts' contiguous 64 and 448 leaves with a scalar; and
+     shape in fp16, bf16 and fp32, and sequence 2048 in fp16 and fp32)
+     PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+     ``actor_moe`` at B = 64, 192 and 448, ``sumtree`` at random N = 64,
+     256, 448 and at the inserts' contiguous 64 and 448 leaves with a
+     scalar, ``sumtree_sample`` at N = 256 and 448; and
      ``launch_floor_us``, an empty kernel in the same harness;
   5. the single-search path: ``repro_torch.launch.dse.run`` on ``cuda``
      (Llama 3.1 8B decode, seq 2048, batch 3, high-performance mode, node
@@ -92,9 +98,13 @@ SRC = os.path.join(ROOT, "src")
 OUT = os.path.join(ROOT, "experiments", "dse", "chip_smoke")  # git-ignored
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain: fp32, other sum order
 # H100 SXM published peaks (NVIDIA data sheet): fp32 without tensor cores,
-# fp16/bf16 dense on the tensor cores, and HBM3 bandwidth
+# fp16/bf16 and TF32 dense on the tensor cores, and HBM3 bandwidth.  A
+# kernel that computes fp32 products as 3xTF32 (hi.hi + hi.lo + lo.hi, the
+# accuracy of fp32) runs three TF32 products for each: its operations term
+# is 3 x flops at the TF32 rate ("tf32x3").
 PEAK_FP32_FLOPS = 67e12
 PEAK_HALF_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_S = 3.35e12
 # special-function unit results (ex2, rcp, ...) a clock on each SM of a
 # compute-capability 9.0 card (CUDA C++ Programming Guide, arithmetic
@@ -261,14 +271,18 @@ def load_floor(proc, lib: str):
 SFU_RATE = None   # results a second, set from the card in main()
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
+OPS_TERMS = {"fp32": lambda f: f / PEAK_FP32_FLOPS,
+             "half": lambda f: f / PEAK_HALF_FLOPS,
+             "tf32x3": lambda f: 3 * f / PEAK_TF32_FLOPS}
+
+
+def bound_ms(flops: float, nbytes: float, unit: str = "fp32",
              sfu_ops: float = 0.0):
     """The least time of a call (ms), what bounds it ("operations" or
-    "bytes") and which term: "fp32" or "half" (the flops at ``peak``),
-    "sfu" (``sfu_ops`` special-function results at ``SFU_RATE``) or
-    "bytes"."""
-    terms = {"fp32" if peak == PEAK_FP32_FLOPS else "half": flops / peak,
-             "bytes": nbytes / PEAK_BYTES_S}
+    "bytes") and which term: the flops as ``unit`` ("fp32", "half" or
+    "tf32x3", see ``OPS_TERMS``), "sfu" (``sfu_ops`` special-function
+    results at ``SFU_RATE``) or "bytes"."""
+    terms = {unit: OPS_TERMS[unit](flops), "bytes": nbytes / PEAK_BYTES_S}
     if sfu_ops:
         terms["sfu"] = sfu_ops / SFU_RATE
     term = max(terms, key=terms.get)
@@ -513,9 +527,10 @@ def main() -> None:
         "N 1/31/32/33/64/256/448/1024/1500, per-leaf values and scalar "
         "broadcast; root == sum of leaves (rtol 1e-12)")
     # sumtree_sample: bitwise against the plain descent and the host walk,
-    # on trees with zero leaves (prefix sums landing on boundaries) and
-    # leaves on two levels
-    for cap in (1, 8, 100, 257, SUMTREE_CAP):
+    # on trees with zero leaves (prefix sums landing on boundaries), leaves
+    # on two levels, and the kernel's rounds of 6 levels ending partial (14
+    # levels at 8,193, 17 at 100,000) or whole (18 at 200,000)
+    for cap in (1, 8, 100, 257, 8193, SUMTREE_CAP, 2 * SUMTREE_CAP):
         host = replay.SumTree(cap)
         host.set_many(np.arange(cap),
                       nrng.integers(0, 4, cap).astype(np.float64))
@@ -537,7 +552,7 @@ def main() -> None:
                 fail(f"sumtree_sample cap {cap} N={n}: indices differ from "
                      "the plain descent or the host SumTree walk")
     log("parity sumtree_sample: bitwise == plain and host SumTree walk at "
-        "caps 1/8/100/257/100000, N 1/33/256/448")
+        "caps 1/8/100/257/8193/100000/200000, N 1/33/256/448")
     # the device PER against the host SumTree: the same inserts and
     # priority refreshes, then the host descent on the buffer's own uniforms
     buf = replay.PERBuffer(52, 30, 4, seed=SEED, device=dev)
@@ -632,13 +647,15 @@ def main() -> None:
         f"{mpc.K_CANDIDATES} candidates")
     # flash_attention against its plain version: the reference's sweep,
     # ragged lengths, the edges and the LM prefill's shape in fp32, fp16
-    # and bf16 (fp16 and bf16 run the tensor-core kernel, fp32 the SIMT
-    # one); "unaligned": q, k and v are x[..., 1:65] of [..., 66] tensors,
-    # not 16-byte aligned, so loaded element by element
+    # and bf16 (fp16 and bf16 run one tensor-core kernel, fp32 the 3xTF32
+    # one), and sequence 2048 in fp32; "unaligned": q, k and v are
+    # x[..., 1:65] of [..., 66] tensors, not 16-byte aligned, so loaded
+    # element by element
     cases = [(c, dt, False) for c in ATTN_CASES + [ATTN_LM]
              for dt in (torch.float32, torch.float16, torch.bfloat16)]
     cases += [((2, 8, 2, 150, 150, 64, True, 0), dt, True)
-              for dt in (torch.float16, torch.bfloat16)]
+              for dt in (torch.float32, torch.float16, torch.bfloat16)]
+    cases += [(ATTN_2048, torch.float32, False)]
     for (B, H, Hk, Sq, Sk, hd, causal, window), dt, unaligned in cases:
         pad = int(unaligned)
         q, k, v = (torch.randn((B, n, S, hd + 2 * pad), generator=gen,
@@ -685,7 +702,7 @@ def main() -> None:
     nbytes = lambda tree: sum(t.numel() * 4 for t in tree_leaves(tree))
 
     def timed(key, shape, kernel, plain, work, plain_in_graph=True,
-              plain_calls=20, peak=PEAK_FP32_FLOPS, library=None):
+              plain_calls=20, unit="fp32", library=None):
         with torch.no_grad():
             ms, call = device_ms(kernel), call_ms(kernel)
             plain_call = call_ms(plain, n=200 if plain_calls == 20 else 10,
@@ -694,13 +711,16 @@ def main() -> None:
                                  replays=200 // plain_calls) \
                 if plain_in_graph else plain_call
             library_ms = None if library is None else device_ms(library)
-        bnd, by, term = bound_ms(*work[:2], peak=peak,
+        bnd, by, term = bound_ms(*work[:2], unit=unit,
                                  sfu_ops=work[2] if len(work) > 2 else 0.0)
         timings[key] = (ms, plain_ms, bnd, by, term, call, library_ms)
+        # a 3xTF32 kernel's bound beside the fp32-FMA one it replaced
+        fma = "" if unit != "tf32x3" else \
+            f" (fp32 FMA: {1e6 * work[0] / PEAK_FP32_FLOPS:.4f})"
         log(f"time {key[0]} {shape}: ms {ms:.5f} plain_ms {plain_ms:.5f} "
-            f"bound_us {1e3 * bnd:.4f} bound_by {by} ({term}) library_ms "
-            f"{library_ms} | eager call_ms {call:.5f} plain_call_ms "
-            f"{plain_call:.5f}")
+            f"bound_us {1e3 * bnd:.4f}{fma} bound_by {by} ({term}) "
+            f"library_ms {library_ms} | eager call_ms {call:.5f} "
+            f"plain_call_ms {plain_call:.5f}")
 
     for b in (64, 192, 448):
         s = torch.randn((b, 52), generator=gen, device=dev)
@@ -744,7 +764,7 @@ def main() -> None:
     floor = device_ms(empty_launch)
     log(f"launch_floor_us {1e3 * floor:.4f} (an empty kernel, <<<1, 32>>>, "
         "200 launches replayed from a CUDA graph between CUDA events)")
-    for n in (256,):
+    for n in (256, 448):
         u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
         timed(("sumtree_sample", n), f"N={n} cap={SUMTREE_CAP}",
               lambda: sumtree_sample.sumtree_sample_cuda(tree, u,
@@ -757,15 +777,16 @@ def main() -> None:
         timed(("fused_mlp", b), f"[{b},82]->{d_out}",
               lambda: policy_mlp.fused_mlp_cuda(x, *mlp_ws[d_out]),
               lambda: policy_mlp.fused_mlp_plain(x, *mlp_ws[d_out]),
-              mlp_work(b, d_out, 4))
+              mlp_work(b, d_out, 4), unit="tf32x3")
     # flash_attention at the Llama prefill's shape (fp16; bf16 for Jamba,
-    # fp32 for run c) and at the paper's sequence length in fp16; the
-    # library yardstick is PyTorch's fused attention on the same inputs
-    # (never called by the port)
+    # fp32 for runs c and d) and at the paper's sequence length in fp16 and
+    # fp32; the library yardstick is PyTorch's fused attention on the same
+    # inputs (never called by the port)
     for shape, dt, label in ((ATTN_LM, torch.float16, "a"),
                              (ATTN_LM, torch.bfloat16, "b"),
                              (ATTN_LM, torch.float32, "c"),
-                             (ATTN_2048, torch.float16, "2048")):
+                             (ATTN_2048, torch.float16, "2048"),
+                             (ATTN_2048, torch.float32, "2048_fp32")):
         B, H, Hk, Sq, Sk, hd, causal, window = shape
         q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
@@ -777,8 +798,7 @@ def main() -> None:
               lambda: flash_attention.flash_attention_cuda(q, k, v),
               lambda: flash_attention.flash_attention_plain(q, k, v),
               attention_work(*shape, q.element_size()),
-              peak=PEAK_FP32_FLOPS if dt == torch.float32
-              else PEAK_HALF_FLOPS,
+              unit="tf32x3" if dt == torch.float32 else "half",
               library=lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
     # ssm_scan at Jamba's prefill shape; the plain version is a loop of S
     # steps (7 ops each), so its graph holds 2 calls and 10 are timed eager

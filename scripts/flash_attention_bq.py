@@ -30,8 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import (ATTN_TOL, PEAK_HALF_FLOPS, attention_work,  # noqa
-                        bound_ms, device_ms)
+from chip_smoke import (ATTN_TOL, attention_work, bound_ms,  # noqa: E402
+                        device_ms)
 from repro_torch.kernels import build, flash_attention  # noqa: E402
 
 SHAPES = {"lm": (4, 32, 8, 512, 512, 128, True, 0),
@@ -99,7 +99,7 @@ def main():
                 lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True))
             flops, nbytes = attention_work(*shape, q.element_size())
-            bnd, by, _ = bound_ms(flops, nbytes, peak=PEAK_HALF_FLOPS)
+            bnd, by, _ = bound_ms(flops, nbytes, unit="half")
             print(json.dumps(dict(
                 round=rnd, warps=warps, bq=16 * warps, shape=name,
                 dtype=str(dt)[6:], ms=ms, sdpa_ms=lib_ms, bound_ms=bnd,

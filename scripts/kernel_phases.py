@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the ``sumtree``, ``actor_moe``, ``fused_mlp`` and ``ssm_scan``
-kernels spend their time, phase by phase, on one card (the machine has no
-``ncu``).
+"""Where the ``sumtree``, ``actor_moe``, ``fused_mlp``, ``ssm_scan``,
+``sumtree_sample`` and fp32 ``flash_attention`` kernels spend their time,
+phase by phase, on one card (the machine has no ``ncu``).
 
 Copies the kernels' sources (``csrc/sumtree.cu``, ``actor_moe.cu``,
-``policy_mlp.cu``, ``ssm_scan.cu``) into the git-ignored
+``policy_mlp.cu``, ``ssm_scan.cu``, ``sumtree_sample.cu``,
+``flash_attention.cu``) into the git-ignored
 ``experiments/dse/kernel_phases/``, inserts ``clock64()`` marks that thread
 0 of each block writes into a ``__device__`` array at the boundaries of the
 kernels' phases (the marks are anchored on the sources' own comments and
@@ -14,7 +15,10 @@ Prints, per shape, the SM cycles of each phase: for ``sumtree`` the one
 block's, for the others the median and the maximum over the blocks
 (``fused_mlp``: the block's first tile, then all its tiles; ``ssm_scan``:
 the loop's cycles summed over its stages as copy and wait, compute and the
-closing barrier), and the SM clock ``nvidia-smi`` reads after the runs.
+closing barrier; ``sumtree_sample``: warp 0's sample, its first round trip
+and each round; fp32 ``flash_attention``: warp 0's prologue, its
+tile loop summed as copy wait and barrier, S = Q K^T, softmax and P V, and
+the epilogue), and the SM clock ``nvidia-smi`` reads after the runs.
 
     python3 scripts/kernel_phases.py [--kernels sumtree actor_moe ...]
 """
@@ -111,8 +115,45 @@ SSM = (
       "    }\n  }\n", 3, True)])
 
 
+# sumtree_sample: the root, the uniform and the first round's nodes, then
+# a mark after each round's walk, ballot and shuffles (3 rounds of 6
+# levels at cap 100,000)
+SAMPLE = (
+    ("sumtree_sample", ("root, u, first gather", "round 1", "round 2",
+                        "round 3")),
+    [("  const long long two_cap = 2 * cap;\n", 0, True),
+     ("  long long i = 1;\n", "  MARK(1);\n  int round_ = 0;\n", True),
+     ("    i = __shfl_sync(FULL, at, src);\n",
+      "    MARK(2 + round_);\n    ++round_;\n", True)])
+# flash_attention fp32: timestamps 0-1 (prologue) and 2-3 (epilogue), the
+# tile loop's cycles summed in slots 4-7
+FLASH = (
+    ("flash_attention", ("prologue", "epilogue")),
+    [("  const float* qf = sq + (warp * 16 + g) * Ly::LQK + 2 * t;\n",
+      "  MARK(1);\n  long long cyc_[4] = {0, 0, 0, 0};\n", True),
+     ("  load_tile<BQ, HDP, Ly::LQK>(sq, qb, qss, q0, Sq, hd, vec);\n", 0,
+      False),
+     ("    cp_async_wait<0>();   // tile it (and at first Q) has landed\n",
+      "    long long t0_ = clock64();\n", False),
+     ("    load_kv(it + 1);      // into the stage tile it - 1 used\n",
+      "    long long t1_ = clock64(); cyc_[0] += t1_ - t0_;\n", True),
+     ("    base2_scores(s, kt, wq0, Sk, causal, window, sl2);\n"
+      "    online_softmax(s, m, l, acc);\n\n    // acc += P V, 8 keys",
+      "    long long t2_ = clock64(); cyc_[1] += t2_ - t1_;\n", False),
+     ("\n    // acc += P V, 8 keys a step.",
+      "\n    long long t3_ = clock64(); cyc_[2] += t3_ - t2_;", False),
+     ("  }\n  cp_async_wait<0>();   // no copy in flight at exit\n",
+      "    cyc_[3] += clock64() - t3_;\n", False),
+     ("  cp_async_wait<0>();   // no copy in flight at exit\n",
+      "  MARK(2);\n  if (threadIdx.x == 0) for (int i_ = 0; i_ < 4; ++i_)\n"
+      "    g_marks_flash_attention[BLOCK * 16 + 4 + i_] = cyc_[i_];\n", True),
+     ("\n}\n\ntemplate <int HDP>\nint launch_hdp(", "\n  MARK(3);", False)])
+
+
 SOURCES = {"sumtree": "sumtree", "actor_moe": "actor_moe",
-           "fused_mlp": "policy_mlp", "ssm_scan": "ssm_scan"}
+           "fused_mlp": "policy_mlp", "ssm_scan": "ssm_scan",
+           "sumtree_sample": "sumtree_sample",
+           "flash_attention": "flash_attention"}
 
 
 def instrument(name: str, anchors) -> Path:
@@ -145,8 +186,8 @@ def main() -> None:
         sys.exit("needs a CUDA device")
     OUT.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
-    for (name, _), anchors in (k for k in (SUMTREE, ACTOR, MLP, SSM)
-                               if k[0][0] in chosen):
+    for (name, _), anchors in (k for k in (SUMTREE, ACTOR, MLP, SSM, SAMPLE,
+                                           FLASH) if k[0][0] in chosen):
         src = instrument(name, anchors)
         obj = OUT / f"{name}.o"
         objs.append(str(obj))
@@ -159,7 +200,8 @@ def main() -> None:
                            "-o", str(lib_path), *objs])
     lib = ctypes.CDLL(str(lib_path))
     for name in ("sumtree_set_many", "actor_moe_forward", "fused_mlp_forward",
-                 "ssm_scan_forward"):
+                 "ssm_scan_forward", "sumtree_sample",
+                 "flash_attention_forward"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = build.SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
@@ -186,6 +228,10 @@ def main() -> None:
         mlp_phases(lib, dev, stream, marks)
     if "ssm_scan" in chosen:
         ssm_phases(lib, dev, stream, marks)
+    if "sumtree_sample" in chosen:
+        sample_phases(lib, dev, stream, marks)
+    if "flash_attention" in chosen:
+        flash_phases(lib, dev, stream, marks)
     print("SM clock after the runs: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True,
@@ -286,6 +332,46 @@ def ssm_phases(lib, dev, stream, marks):
             np.concatenate([np.diff(m[:, :4], axis=1), m[:, 4:7]], axis=1),
             SSM[0][1] + ("loop: copy and wait", "loop: compute",
                          "loop: closing barrier"))
+
+
+def sample_phases(lib, dev, stream, marks):
+    cap = 100_000
+    tree = torch.as_tensor(np.random.default_rng(1).random(2 * cap),
+                           device=dev)
+    for n in (256, 448):
+        u = torch.rand(n, device=dev, dtype=torch.float64)
+        idx = torch.empty(n, dtype=torch.int64, device=dev)
+        for _ in range(5):
+            build.check(lib.sumtree_sample(tree.data_ptr(), u.data_ptr(),
+                                           idx.data_ptr(), n, cap, cap,
+                                           stream), "sumtree_sample")
+        torch.cuda.synchronize()
+        summary(f"sumtree_sample N={n} cap={cap} (4 warps a block)",
+                marks("sumtree_sample", -(-n // 4), len(SAMPLE[0][1])),
+                SAMPLE[0][1])
+
+
+def flash_phases(lib, dev, stream, marks):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, H, Hk, S in ((4, 32, 8, 512), (1, 32, 8, 2048)):
+        q = torch.randn((B, H, S, 128), generator=gen, device=dev)
+        k, v = (torch.randn((B, Hk, S, 128), generator=gen, device=dev)
+                for _ in "kv")
+        o = torch.empty_like(q)
+        for _ in range(5):
+            build.check(lib.flash_attention_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+                Hk, S, S, 128, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *o.stride()[:3], 1, 0, 128 ** -0.5, 0,
+                stream), "flash_attention")
+        torch.cuda.synchronize()
+        blocks = -(-S // 128) * B * H    # 128 query rows a block (8 warps)
+        m = marks("flash_attention", blocks, 8, raw=True)
+        summary(f"flash_attention fp32 q [{B},{H},{S},128] causal",
+                np.concatenate([np.diff(m[:, :2], axis=1), m[:, 4:8],
+                                np.diff(m[:, 2:4], axis=1)], axis=1),
+                ("prologue", "loop: copy wait and barrier", "loop: S = Q K^T",
+                 "loop: softmax", "loop: P V", "epilogue"))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,18 @@ harness.  The kernels, their checks and their timed shapes:
   [28672,82]->52 in fp32;
 - ``ssm_scan``: rtol/atol 1e-4 on y and the final state, with and without
   h0, at S 1 to 2,048 (each side of the 16-step stage), ragged D and N <
-  16, one launch a call and a bitwise repeat; Jamba's [4,512,8192] N = 16.
+  16, one launch a call and a bitwise repeat; Jamba's [4,512,8192] N = 16;
+- ``sumtree_sample``: bitwise against the plain version and the host
+  ``SumTree`` walk, one launch a call, at caps 2^k (k = 1 to 20: every
+  depth, so every length of a last partial round), 1, 257, 100,000 and
+  200,000 with zero leaves, N each side of the warp and the block; N = 256
+  and 448 at cap 100,000, 448 at 200,000;
+- ``flash_attention_fp32``: max abs err under 2e-5 against the plain
+  version, one launch a call and a bitwise repeat, over ``chip_smoke.py``'s
+  cases, the LM prefill's shape, sequence 2,048, unaligned and transposed
+  views and hd 32, 64, 80 and 128; q [4,32,512,128] and [1,32,2048,128]
+  causal in fp32, and the first in fp16 (the fp16/bf16 kernel shares the
+  softmax and mask code).
 
 One JSON line per run; runs go in the order given, so that two trees
 alternate on one card.
@@ -31,6 +42,9 @@ alternate on one card.
         --tree C=. --runs P C C:ACTOR_TB=8 C:ACTOR_TB=16 C P
     python3 scripts/search_kernels_ab.py --kernels fused_mlp ssm_scan \\
         --tree P=experiments/dse/parent --tree C=. --runs P C C P
+    python3 scripts/search_kernels_ab.py --kernels sumtree_sample \\
+        flash_attention_fp32 --tree P=experiments/dse/parent --tree C=. \\
+        --runs P C C P
 """
 from __future__ import annotations
 
@@ -51,8 +65,9 @@ sys.path.insert(0, os.path.join(tree_dir, "src"))
 sys.path.insert(0, root)
 import chip_smoke as cs
 from repro_torch.core import replay, sac
-from repro_torch.kernels import (actor_moe, build, policy_mlp, ssm_scan,
-                                  sumtree)
+from repro_torch.kernels import (actor_moe, build, flash_attention,
+                                  policy_mlp, ssm_scan, sumtree,
+                                  sumtree_sample)
 
 dev = torch.device("cuda")
 lib = build.build(verbose=True, defines=defines)
@@ -60,7 +75,9 @@ build._lib = build.load(lib)
 # -Xptxas -v of the chosen kernels' sources (empty when the library was
 # already built)
 srcs = {"sumtree": "sumtree.cu", "actor_moe": "actor_moe.cu",
-        "fused_mlp": "policy_mlp.cu", "ssm_scan": "ssm_scan.cu"}
+        "fused_mlp": "policy_mlp.cu", "ssm_scan": "ssm_scan.cu",
+        "sumtree_sample": "sumtree_sample.cu",
+        "flash_attention_fp32": "flash_attention.cu"}
 ptxas = [sec for sec in build.last_build_log.split("== ")
          if sec.startswith(tuple("nvcc " + srcs[k] for k in kernels))]
 out = dict(tree=tree_dir, defines=defines, lib=lib.name)
@@ -209,6 +226,79 @@ if "ssm_scan" in kernels:
     t["ssm_scan_4x512x8192"] = 1e3 * cs.device_ms(
         lambda: ssm_scan.ssm_scan_cuda(*ins))
 
+if "sumtree_sample" in kernels:
+    rng = np.random.default_rng(0)
+    cases = 0
+    for cap in [1, 257, 100_000, 200_000] + [2 ** e for e in range(1, 21)]:
+        host = replay.SumTree(cap)
+        host.set_many(np.arange(cap),
+                      rng.integers(0, 4, cap).astype(np.float64))
+        tree_d = torch.as_tensor(host.tree, device=dev)
+        for n in (1, 3, 4, 5, 31, 32, 33, 127, 128, 129, 256, 448):
+            u = rng.random(n)
+            size = max(1, cap // 2) if n % 2 else cap
+            u_d = torch.as_tensor(u, device=dev)
+            before = sumtree_sample.launches
+            got = sumtree_sample.sumtree_sample_cuda(tree_d, u_d, size)
+            again = sumtree_sample.sumtree_sample_cuda(tree_d, u_d, size)
+            got, again = got.cpu(), again.cpu()
+            want = sumtree_sample.sumtree_sample_plain(
+                torch.as_tensor(host.tree), torch.as_tensor(u), size)
+            walk = np.minimum([host.sample(float(x)) for x in
+                               (np.arange(n) + u) * (host.total() / n)],
+                              size - 1)
+            if not (torch.equal(got, want) and torch.equal(got, again)
+                    and np.array_equal(got.numpy(), walk)
+                    and sumtree_sample.launches - before == 2):
+                sys.exit(f"sumtree_sample cap {cap} N {n}: not bitwise the "
+                         "plain version / host walk, or not one launch")
+            cases += 1
+    out["sumtree_sample_cases_bitwise"] = cases
+    for cap, n in ((100_000, 256), (100_000, 448), (200_000, 448)):
+        tree = torch.as_tensor(np.random.default_rng(1).random(2 * cap),
+                               device=dev)
+        u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        t[f"sumtree_sample_N{n}_cap{cap}"] = 1e3 * cs.device_ms(
+            lambda: sumtree_sample.sumtree_sample_cuda(tree, u, cap))
+
+if "flash_attention_fp32" in kernels:
+    errs = {}
+    cases = [(c, "contiguous") for c in cs.ATTN_CASES + [cs.ATTN_LM,
+                                                         cs.ATTN_2048]]
+    cases += [((2, 8, 2, 150, 150, 64, True, 0), "unaligned"),
+              ((2, 8, 2, 50, 50, 64, True, 0), "transposed")]
+    cases += [((1, 8, 2, 333, 333, hd, True, 0), "contiguous")
+              for hd in (32, 64, 80, 128)]
+    for (B, H, Hk, Sq, Sk, hd, causal, window), layout in cases:
+        if layout == "transposed":   # [B,S,H,hd] projections, as the LM's
+            q = torch.randn((B, Sq, H, hd), generator=gen,
+                            device=dev).transpose(1, 2)
+            kv = torch.randn((B, Sk, 2, Hk, hd), generator=gen, device=dev)
+            k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        else:
+            pad = int(layout == "unaligned")
+            q, k, v = (torch.randn((B, n, S, hd + 2 * pad), generator=gen,
+                                   device=dev)[..., pad:pad + hd]
+                       for n, S in ((H, Sq), (Hk, Sk), (Hk, Sk)))
+        label = f"{(B, H, Hk, Sq, Sk, hd, causal, window)} {layout}"
+        errs[label] = once_repeatable(
+            f"flash_attention fp32 {label}", flash_attention,
+            lambda: flash_attention.flash_attention_cuda(
+                q, k, v, causal=causal, window=window),
+            lambda: flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window), 0.0, 2e-5)
+    out["flash_attention_fp32_max_abs_err"] = max(errs.values())
+    out["flash_attention_fp32_errs"] = errs
+    for label, shape, dtype in (("LM", cs.ATTN_LM, torch.float32),
+                                ("2048", cs.ATTN_2048, torch.float32),
+                                ("LM_fp16", cs.ATTN_LM, torch.float16)):
+        B, H, Hk, Sq, Sk, hd, causal, window = shape
+        q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hk, Sk, hd), generator=gen,
+                            device=dev).to(dtype) for _ in "kv")
+        t[f"flash_attention_{label}"] = 1e3 * cs.device_ms(
+            lambda: flash_attention.flash_attention_cuda(q, k, v))
+
 proc, floor_lib = cs.start_floor_build(
     build.nvcc(), build.NVCC_FLAGS, os.path.join(root, "experiments", "dse",
                                                  "search_kernels_ab"))
@@ -227,7 +317,8 @@ def main() -> None:
                     metavar="LABEL[:NAME=VALUE,...]")
     ap.add_argument("--kernels", nargs="+", default=["sumtree", "actor_moe"],
                     choices=["sumtree", "actor_moe", "fused_mlp",
-                             "ssm_scan"])
+                             "ssm_scan", "sumtree_sample",
+                             "flash_attention_fp32"])
     a = ap.parse_args()
     trees = dict(t.split("=", 1) for t in a.tree)
     card = subprocess.run(

@@ -1,6 +1,6 @@
 // Blocked online-softmax attention (GQA, causal, sliding window) for
-// Hopper (sm_90a): a tensor-core kernel for fp16 and bf16, a SIMT kernel
-// for fp32.
+// Hopper (sm_90a) on the tensor cores: one kernel for fp16 and bf16, one
+// for fp32 (3xTF32).
 //
 // Replaces: src/repro/kernels/flash_attention.py, `_flash_kernel`
 // (pallas_call in `flash_attention_pallas`).  Same function as the plain
@@ -51,17 +51,35 @@
 // and TMA, which take the products and the copies off the warps, are the
 // next version's.
 //
-// fp32 (`simt::`), the first port's kernel: no tensor cores (TF32 would
-// break the fp32 tolerance), so bound by its fp32 FMAs and shared-memory
-// loads (128 us of FMAs alone at 67 TFLOP/s for the work above).  One
-// block per (b, h, 32-row query tile), 8 warps of 4 query rows each.  The block walks
-// the key tiles its rows can see in 32-key tiles, staged in shared memory
-// (the K rows padded to hd + 1 floats, so that lane j reading row j hits
-// bank j).  Scores: lane j owns key j of the tile and runs the hd-long dot
-// product for the warp's 4 rows.  Softmax: per row a warp max and a warp
-// sum by shuffles.  P @ V: for each key j its probability is shuffled to
-// the warp and lane l accumulates the output columns l, l + 32, l + 64,
-// l + 96 from V's row j.
+// fp32 (`tf32::`), 3xTF32 on the same tensor cores (mma.sync.m16n8k8):
+// every fp32 operand is split as hi = a with the 13 bits TF32 drops
+// cleared and lo = a - hi, and each product is taken as hi.hi + lo.hi +
+// hi.lo, which keeps fp32's accuracy where a plain TF32 product keeps 11
+// bits.  The tensor cores round toward zero when they add a product into a
+// larger fp32 sum, and over thousands of keys that bias adds up, so S's
+// small products go into accumulators of their own (summed with hi.hi once
+// a tile), and each tile's P V goes into fresh accumulators that are added
+// to the running output with one rounding (a quarter of the columns at a
+// time, for registers).  Same skeleton as `tc::`: one block per (b, h,
+// query tile of 128 rows: 8 warps), the heaviest causal tiles first, K/V
+// tiles of 64 keys through a 2-stage cp.async ring (16-byte copies when
+// aligned, element-wise otherwise, one barrier a tile), masks only on the
+// tiles that cross the diagonal, the window edge or Sk, and the same online
+// softmax in base 2 on the fragments (ex2.approx: its relative error,
+// about 2^-22, is far inside the 2e-5 the kernel is held to).  The Q tile
+// stays in shared memory in fp32 and is split per k-step (as hi/lo
+// fragments in registers it would take 128 of them at hd = 128).  Inside
+// each block of 8 columns the fragments take columns 2t and 2t + 1 as their
+// k = t and t + 4, so A and B fragments of Q and K are float2 reads; the S
+// accumulator (keys 2t, 2t + 1 of each 8) is then P's A fragment of P V as
+// it stands, with V's B fragment reading rows 2t and 2t + 1: no shuffle.
+// Rows are padded to hd + 8 floats (Q, K) and hd + 4 (V), which makes
+// every fragment read free of bank conflicts; hd is zero-padded to HDP =
+// 32, 64 or 128.  The output is written from the fragments (float2 stores
+// when aligned).  At the LM prefill's shape a call needs 3 x 8.6 GFLOP of
+// TF32 products: 52 us at the tensor cores' dense 494.7 TFLOP/s (a rate
+// only wgmma reaches; this kernel runs mma.sync), against 25 us for its
+// 84 MB.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -69,7 +87,7 @@
 #include <stdint.h>
 
 #ifndef FLASH_TC_WARPS
-#define FLASH_TC_WARPS 4   // warps of the tensor-core kernel: BQ = 16 x this
+#define FLASH_TC_WARPS 4   // warps of the fp16/bf16 kernel: BQ = 16 x this
 #endif
 
 namespace {
@@ -77,6 +95,7 @@ namespace {
 constexpr int HD_MAX = 128;
 constexpr float MASKED = -1e30f;    // the Pallas kernel's NEG_INF
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // the key tiles some query row in [q0, q_last] can see, [*k_begin, *k_end):
 // causal, none past the last row; window, none before the first row's
@@ -89,185 +108,6 @@ __device__ __forceinline__ void key_range(int q0, int q_last, int Sk,
   *k_begin = 0;
   if (window > 0 && q_last < Sk + window - 1)
     *k_begin = max(0, q0 - window + 1) / bk * bk;
-}
-
-// ------------------------------------------------------------ fp32, SIMT
-namespace simt {
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RW = 4;               // query rows per warp
-constexpr int BQ = WARPS * RW;      // query rows per block
-constexpr int BK = 32;              // keys per tile: one per lane
-constexpr int DPL = HD_MAX / 32;    // output columns per lane
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-size_t smem_bytes(int hd) {
-  return sizeof(float) * (size_t)(BQ * hd + BK * (hd + 1) + BK * hd);
-}
-
-__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int H, int Hk,
-    int Sq, int Sk, int hd, long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss, long long vsb,
-    long long vsh, long long vss, long long osb, long long osh,
-    long long oss, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [BQ][hd]
-  float* ks = qs + BQ * hd;          // [BK][hd + 1]
-  float* vs = ks + BK * (hd + 1);    // [BK][hd]
-  const int hdp = hd + 1;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int hk = (int)((long long)h * Hk / H);
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
-  float* ob = o + b * osb + h * osh;
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * RW;
-
-  for (int i = tid; i < BQ * hd; i += THREADS) {
-    const int r = i / hd, d = i - r * hd, qi = q0 + r;
-    qs[i] = qi < Sq ? qb[qi * qss + d] : 0.0f;
-  }
-
-  int k_begin, k_end;
-  key_range(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, BK, &k_begin,
-            &k_end);
-
-  float m[RW], l[RW], acc[RW][DPL];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    m[r] = MASKED;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.0f;
-  }
-
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();   // the q tile is in; the previous K/V tile is used
-    for (int i = tid; i < BK * hd; i += THREADS) {
-      const int j = i / hd, d = i - j * hd, kj = kt + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (kj < Sk) {
-        kv = kb[kj * kss + d];
-        vv = vb[kj * vss + d];
-      }
-      ks[j * hdp + d] = kv;
-      vs[j * hd + d] = vv;
-    }
-    __syncthreads();
-
-    // scores of key kt + lane against the warp's rows
-    float s[RW];
-#pragma unroll
-    for (int r = 0; r < RW; ++r) s[r] = 0.0f;
-    const float* krow = ks + lane * hdp;
-    const float* qrow = qs + r0 * hd;
-    for (int d = 0; d < hd; ++d) {
-      const float kd = krow[d];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) s[r] = fmaf(qrow[r * hd + d], kd, s[r]);
-    }
-    const int kj = kt + lane;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int qi = q0 + r0 + r;
-      float sr = s[r] * scale;
-      bool visible = true;
-      if (causal) visible = visible && kj <= qi;
-      if (window > 0) visible = visible && kj > qi - window;
-      sr = visible ? sr : MASKED;
-      if (kj >= Sk) sr = -INFINITY;   // past the keys: no weight at all
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(sr - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      m[r] = m_new;
-      s[r] = p;
-    }
-
-    // acc += P @ V
-    const int n_keys = min(BK, Sk - kt);
-    for (int j = 0; j < n_keys; ++j) {
-      float pj[RW];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) pj[r] = __shfl_sync(FULL, s[r], j);
-      const float* vrow = vs + j * hd;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          const float vd = vrow[d];
-#pragma unroll
-          for (int r = 0; r < RW; ++r) acc[r][i] = fmaf(pj[r], vd, acc[r][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int qi = q0 + r0 + r;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) ob[qi * oss + d] = acc[r][i] / denom;
-    }
-  }
-}
-
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int hd, long long qsb,
-           long long qsh, long long qss, long long ksb, long long ksh,
-           long long kss, long long vsb, long long vsh, long long vss,
-           long long osb, long long osh, long long oss, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hk, Sq, Sk,
-      hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
-      window, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace simt
-
-// ------------------------------------------------ fp16/bf16, tensor cores
-namespace tc {
-
-constexpr int WARPS = FLASH_TC_WARPS;
-constexpr int THREADS = WARPS * 32;
-constexpr int BQ = 16 * WARPS;      // query rows per block, 16 per warp
-constexpr int BK = 64;              // keys per K/V tile
-constexpr int STAGES = 2;           // the K/V ring
-constexpr float LOG2E = 1.4426950408889634f;
-
-constexpr int PAD = 8;              // elements (16 bytes) after each row
-
-template <int HDP> size_t smem_bytes() {
-  return sizeof(uint16_t) * (size_t)(2 * STAGES * BK + BQ) * (HDP + PAD);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -284,6 +124,407 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the SFU, denormal results flushed to 0 (what exp2f compiles to
+// under --use_fast_math)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A warp's S tile (rows wq0 + g and wq0 + g + 8, keys kt + 8 n + 2 t and
+// + 1: the m16n8 accumulator layout) to scores in base 2: scaled by sl2 =
+// scale * log2(e), masked ones -1e30, keys past Sk -inf (no weight at
+// all); the mask is built only where the tile crosses the diagonal, the
+// window edge or Sk.
+template <int NT>
+__device__ __forceinline__ void base2_scores(float (&s)[NT][4], int kt,
+                                             int wq0, int Sk, int causal,
+                                             int window, float sl2) {
+  constexpr int BK = 8 * NT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool edge = kt + BK > Sk || (causal && kt + BK - 1 > wq0) ||
+                    (window > 0 && kt <= wq0 + 15 - window);
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = kt + n * 8 + 2 * t + (e & 1);
+        const int qi = wq0 + g + (e >> 1) * 8;
+        const bool visible = (!causal || kj <= qi) &&
+                             (window <= 0 || kj > qi - window);
+        s[n][e] = kj >= Sk ? -INFINITY : visible ? s[n][e] * sl2 : MASKED;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
+  }
+}
+
+// The online softmax of a base-2 score tile, on the fragments: per row (g,
+// g + 8) the new max (pairwise trees, short dependency chains, then two
+// shuffles in the quad), s overwritten by p = 2^(s - max) on the SFU, this
+// thread's share of the row sum l, and the accumulator rescaled.
+template <int NT, int DT>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&acc)[DT][4]) {
+  static_assert((NT & (NT - 1)) == 0, "NT a power of two");
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float red[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) red[n] = fmaxf(s[n][2 * r], s[n][2 * r + 1]);
+#pragma unroll
+    for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+      for (int i = 0; i < w; ++i) red[i] = fmaxf(red[i], red[i + w]);
+    float mx = fmaxf(red[0], __shfl_xor_sync(FULL, red[0], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    const float alpha = exp2_approx(m[r] - m_new);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][2 * r] = exp2_approx(s[n][2 * r] - m_new);
+      s[n][2 * r + 1] = exp2_approx(s[n][2 * r + 1] - m_new);
+      red[n] = s[n][2 * r] + s[n][2 * r + 1];
+    }
+#pragma unroll
+    for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+      for (int i = 0; i < w; ++i) red[i] += red[i + w];
+    l[r] = l[r] * alpha + red[0];
+    m[r] = m_new;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      acc[i][2 * r] *= alpha;
+      acc[i][2 * r + 1] *= alpha;
+    }
+  }
+}
+
+// ------------------------------------------------- fp32, 3xTF32 tensor cores
+namespace tf32 {
+
+// 8 warps and 64-key tiles (207 KB of shared memory at hd 128: one block
+// an SM) beat 4 warps or 32-key tiles on the card (PERF.md)
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 16 * WARPS;      // query rows per block, 16 per warp
+constexpr int BK = 64;              // keys per K/V tile
+constexpr int NT = BK / 8;          // 8-key column tiles of S
+constexpr int STAGES = 2;           // the K/V ring
+constexpr int PV_GROUPS = 4;        // column groups of a tile's P V
+
+// Row strides in floats: Q and K rows hd + 8 (8 mod 32 words, so that a
+// fragment's float2 reads of 4 rows x 8 columns a half-warp hit every bank
+// once), V rows hd + 4 (4 mod 32: the B fragment's reads of rows 2t and
+// 2t + 1 x 8 columns hit every bank once).  One stage: its K tile, then
+// its V tile; the Q tile after the stages.
+template <int HDP> struct Layout {
+  static constexpr int LQK = HDP + 8, LV = HDP + 4;
+  static constexpr int KT = BK * LQK;
+  static constexpr int ST = KT + BK * LV;
+  static constexpr int FLOATS = STAGES * ST + BQ * LQK;
+};
+
+// a = hi + lo: hi = a with the 13 bits TF32 drops cleared, lo = a - hi
+// (exact), passed as it is: the mma reads a TF32 operand's top 19 bits, so
+// lo is truncated to TF32 there, an error of at most 2^-20 |a|
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a b on the tensor cores: a 16x8 (row), b 8x8 (col), TF32 in, fp32 d
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the small products first, then hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// rows [row0, row0 + ROWS) of a [S, hd] fp32 matrix (row stride `stride`
+// floats) into shared memory [ROWS][LD], zero past S and past hd up to
+// HDP.  `vec`: 16-byte cp.async (base and stride 16-byte aligned, hd % 4
+// == 0); else element-wise loads.
+template <int ROWS, int HDP, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long stride, int row0, int S,
+                                          int hd, bool vec) {
+  if (vec) {
+    constexpr int CPR = HDP / 4;   // 16-byte chunks a row
+#pragma unroll
+    for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+      const int r = c / CPR, col = (c % CPR) * 4;
+      float* d = dst + r * LD + col;
+      if (row0 + r < S && col < hd)
+        cp_async16(smem_u32(d), src + (row0 + r) * stride + col);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HDP; i += THREADS) {
+      const int r = i / HDP, col = i % HDP, row = row0 + r;
+      dst[r * LD + col] = row < S && col < hd ? src[row * stride + col] : 0.f;
+    }
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int BH, int H,
+    int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, long long osb,
+    long long osh, long long oss, int causal, int window, float scale,
+    int vec) {
+  using Ly = Layout<HDP>;
+  constexpr int KS = HDP / 8;      // 8-column k-steps of S = Q K^T
+  constexpr int DT = HDP / 8;      // 8-column tiles of the output
+  constexpr int DG = DT / PV_GROUPS;   // of them in one group of P V
+  static_assert(DT % PV_GROUPS == 0, "PV_GROUPS divides HDP / 8");
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sq = f32_smem + STAGES * Ly::ST;   // [BQ][LQK]
+
+  // the heaviest (last) causal query tiles first, every (b, h) of a q-tile
+  // together
+  const int bh = (int)blockIdx.x % BH;
+  const int q0 = ((int)gridDim.x / BH - 1 - (int)blockIdx.x / BH) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int hk = (int)((long long)h * Hk / H);
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
+  float* ob = o + b * osb + h * osh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // the fragment's row and column
+  const int wq0 = q0 + warp * 16;          // the warp's first query row
+
+  int k_begin, k_end;
+  key_range(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, BK, &k_begin,
+            &k_end);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const float sl2 = scale * LOG2E;
+
+  // tile i's K and V into stage i % STAGES, one commit group a tile (empty
+  // past the last tile)
+  auto load_kv = [&](int i) {
+    if (i < n_tiles) {
+      float* st = f32_smem + (i % STAGES) * Ly::ST;
+      load_tile<BK, HDP, Ly::LQK>(st, kb, kss, k_begin + i * BK, Sk, hd, vec);
+      load_tile<BK, HDP, Ly::LV>(st + Ly::KT, vb, vss, k_begin + i * BK, Sk,
+                                 hd, vec);
+    }
+    cp_async_commit();
+  };
+  load_tile<BQ, HDP, Ly::LQK>(sq, qb, qss, q0, Sq, hd, vec);
+  load_kv(0);
+
+  float acc[DT][4];
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  // this thread's A fragment of Q: rows g and g + 8, columns 2t and 2t + 1
+  // of each 8-column step, which the fragment takes as its k = t and t + 4
+  // (a sum order, not another function: K's B fragment reads the same
+  // columns)
+  const float* qf = sq + (warp * 16 + g) * Ly::LQK + 2 * t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();   // tile it (and at first Q) has landed
+    __syncthreads();      // ... for every thread, and tile it - 1 is read
+    load_kv(it + 1);      // into the stage tile it - 1 used
+    const int kt = k_begin + it * BK;
+    // a tile wholly after the warp's last row is masked for all its rows,
+    // each of which sees its own key elsewhere
+    if (causal && kt > wq0 + 15) continue;
+    const float* kst = f32_smem + (it % STAGES) * Ly::ST;
+    const float* vst = kst + Ly::KT;
+
+    // S = Q K^T, 3xTF32: K's B fragment for key 8n + g is one float2 read;
+    // hi.hi and the small products in accumulators of their own, summed
+    // once at the end
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    float sm[NT][4];   // the small products, apart from hi.hi
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      sm[n][0] = sm[n][1] = sm[n][2] = sm[n][3] = 0.0f;
+    const float* kf = kst + g * Ly::LQK + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 top = *reinterpret_cast<const float2*>(qf + 8 * ks);
+      const float2 bot =
+          *reinterpret_cast<const float2*>(qf + 8 * Ly::LQK + 8 * ks);
+      uint32_t ah[4], al[4];
+      split(top.x, ah[0], al[0]);
+      split(bot.x, ah[1], al[1]);
+      split(top.y, ah[2], al[2]);
+      split(bot.y, ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 kk = *reinterpret_cast<const float2*>(
+            kf + n * 8 * Ly::LQK + 8 * ks);
+        uint32_t bh0, bl0, bh1, bl1;
+        split(kk.x, bh0, bl0);
+        split(kk.y, bh1, bl1);
+        mma(sm[n], al, bh0, bh1);
+        mma(sm[n], ah, bl0, bl1);
+        mma(s[n], ah, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = sm[n][e] + s[n][e];
+    base2_scores(s, kt, wq0, Sk, causal, window, sl2);
+    online_softmax(s, m, l, acc);
+
+    // acc += P V, 8 keys a step.  P's accumulator layout (rows g, g + 8;
+    // keys 2t, 2t + 1) is the A fragment {a0, a2, a1, a3} for k = t <->
+    // key 2t and k = t + 4 <-> key 2t + 1, so V's B fragment reads rows 2t
+    // and 2t + 1, column g of each 8-column tile: no shuffle.  The tile's
+    // products go into fresh accumulators, PV_GROUPS groups of columns in
+    // turn (registers), each then added to acc with one rounding
+    const float* vf = vst + 2 * t * Ly::LV + g;
+#pragma unroll
+    for (int grp = 0; grp < PV_GROUPS; ++grp) {
+      float tile[DG][4];
+#pragma unroll
+      for (int j = 0; j < DG; ++j)
+        tile[j][0] = tile[j][1] = tile[j][2] = tile[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(s[kk][0], ph[0], pl[0]);
+        split(s[kk][2], ph[1], pl[1]);
+        split(s[kk][1], ph[2], pl[2]);
+        split(s[kk][3], ph[3], pl[3]);
+        const float* vk = vf + 8 * kk * Ly::LV + 8 * DG * grp;
+#pragma unroll
+        for (int j = 0; j < DG; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(vk[8 * j], bh0, bl0);
+          split(vk[Ly::LV + 8 * j], bh1, bl1);
+          mma3(tile[j], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[DG * grp + j][e] += tile[j][e];
+    }
+  }
+  cp_async_wait<0>();   // no copy in flight at exit
+
+  // o = acc * (1 / max(l, 1e-30)), straight from the fragments (rows g,
+  // g + 8; columns 2t, 2t + 1 of each 8-column tile)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + g + 8 * r;
+    if (qi >= Sq) continue;
+    float* orow = ob + qi * oss;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      const int col = i * 8 + 2 * t;
+      const float o0 = acc[i][2 * r] * inv[r], o1 = acc[i][2 * r + 1] * inv[r];
+      if (vec) {
+        if (col < hd) *reinterpret_cast<float2*>(orow + col) = make_float2(o0, o1);
+      } else {
+        if (col < hd) orow[col] = o0;
+        if (col + 1 < hd) orow[col + 1] = o1;
+      }
+    }
+  }
+}
+
+template <int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hk, int Sq, int Sk, int hd, long long qsb,
+               long long qsh, long long qss, long long ksb, long long ksh,
+               long long kss, long long vsb, long long vsh, long long vss,
+               long long osb, long long osh, long long oss, int causal,
+               int window, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)Layout<HDP>::FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attention_kernel<HDP><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B * H, H, Hk, Sq,
+      Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+      causal, window, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hk, int Sq, int Sk, int hd, long long qsb,
+           long long qsh, long long qss, long long ksb, long long ksh,
+           long long kss, long long vsb, long long vsh, long long vss,
+           long long osb, long long osh, long long oss, int causal,
+           int window, float scale, cudaStream_t stream) {
+  // 16-byte copies: every base 16-byte aligned, every stride and hd a
+  // multiple of 4 floats
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = hd % 4 == 0 && al(q) && al(k) && al(v) && al(o) &&
+                   (qsb | qsh | qss | ksb | ksh | kss | vsb | vsh | vss |
+                    osb | osh | oss) % 4 == 0;
+  auto fn = hd <= 32   ? &launch_hdp<32>
+            : hd <= 64 ? &launch_hdp<64>
+                       : &launch_hdp<128>;
+  return fn(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss,
+            vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
+            stream);
+}
+
+}  // namespace tf32
+
+// ------------------------------------------------ fp16/bf16, tensor cores
+namespace tc {
+
+constexpr int WARPS = FLASH_TC_WARPS;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 16 * WARPS;      // query rows per block, 16 per warp
+constexpr int BK = 64;              // keys per K/V tile
+constexpr int STAGES = 2;           // the K/V ring
+
+constexpr int PAD = 8;              // elements (16 bytes) after each row
+
+template <int HDP> size_t smem_bytes() {
+  return sizeof(uint16_t) * (size_t)(2 * STAGES * BK + BQ) * (HDP + PAD);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -324,14 +565,6 @@ __device__ __forceinline__ void mma<__nv_bfloat16>(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU, denormal results flushed to 0 (what exp2f compiles to
-// under --use_fast_math)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // two floats rounded to T, the first in the low half
@@ -471,62 +704,13 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
         mma<T>(s[2 * np + 1], qf[ks], kf[2], kf[3]);
       }
     }
-    // scores in base 2; the mask only where the tile crosses the diagonal,
-    // the window edge or Sk
-    const bool edge = kt + BK > Sk || (causal && kt + BK - 1 > wq0) ||
-                      (window > 0 && kt <= wq0 + 15 - window);
-    if (edge) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = kt + n * 8 + 2 * t + (e & 1);
-          const int qi = wq0 + g + (e >> 1) * 8;
-          const bool visible = (!causal || kj <= qi) &&
-                               (window <= 0 || kj > qi - window);
-          s[n][e] = kj >= Sk ? -INFINITY   // past the keys: no weight at all
-                    : visible ? s[n][e] * sl2 : MASKED;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
-    }
+    base2_scores(s, kt, wq0, Sk, causal, window, sl2);
+    online_softmax(s, m, l, acc);
     uint32_t pf[NT][2];   // P rounded to T: the A fragments of P V
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float red[NT];   // pairwise trees: short dependency chains
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        red[n] = fmaxf(s[n][2 * r], s[n][2 * r + 1]);
-#pragma unroll
-      for (int w = NT / 2; w > 0; w >>= 1)
-#pragma unroll
-        for (int i = 0; i < w; ++i) red[i] = fmaxf(red[i], red[i + w]);
-      float mx = fmaxf(red[0], __shfl_xor_sync(FULL, red[0], 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2_approx(m[r] - m_new);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float p0 = exp2_approx(s[n][2 * r] - m_new);
-        const float p1 = exp2_approx(s[n][2 * r + 1] - m_new);
-        red[n] = p0 + p1;
-        pf[n][r] = pack2<T>(p0, p1);
-      }
-#pragma unroll
-      for (int w = NT / 2; w > 0; w >>= 1)
-#pragma unroll
-        for (int i = 0; i < w; ++i) red[i] += red[i + w];
-      l[r] = l[r] * alpha + red[0];   // this thread's share of the row
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        acc[i][2 * r] *= alpha;
-        acc[i][2 * r + 1] *= alpha;
-      }
+    for (int n = 0; n < NT; ++n) {
+      pf[n][0] = pack2<T>(s[n][0], s[n][1]);
+      pf[n][1] = pack2<T>(s[n][2], s[n][3]);
     }
     // acc += P V, 16 keys a step
 #pragma unroll
@@ -629,7 +813,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 fp32 (SIMT kernel), 1 fp16, 2 bf16 (tensor-core kernel).
+// dtype: 0 fp32 (3xTF32 kernel), 1 fp16, 2 bf16 (fp16/bf16 kernel).
 // Strides in elements; hd <= 128.  Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int flash_attention_forward(
@@ -644,7 +828,7 @@ extern "C" int flash_attention_forward(
   const float sc = (float)scale;
   switch (dtype) {
     case 0:
-      return simt::launch(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
+      return tf32::launch(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
                           ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
                           causal, window, sc, s);
     case 1:

@@ -8,7 +8,9 @@ head h * Hk // H) in float32, float16 or bfloat16; float32 scores and sums;
 masked scores are -1e30; the output is in q's type.  Unlike the Pallas
 kernel it takes any Sq and Sk.  float16 and bfloat16 run a tensor-core
 kernel, which rounds the probabilities to q's type before P @ V (as
-PyTorch's fused attention does); float32 runs a SIMT kernel.  The LM
+PyTorch's fused attention does); float32 runs a kernel on the same tensor
+cores in 3xTF32 (each product as three TF32 products, for fp32's
+accuracy).  The LM
 prefill runs every attention layer through it
 (``repro_torch.models.attention.chunked_attention``).
 """
@@ -21,8 +23,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-# the fp32 kernel's 32 lanes x 4 output columns; the fp16/bf16 kernel's
-# widest zero-padded head
+# the kernels' widest zero-padded head
 MAX_HEAD_DIM = 128
 
 launches = 0   # CUDA launches of the kernel (one per wrapper call on CUDA)

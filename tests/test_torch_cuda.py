@@ -291,6 +291,36 @@ def test_sumtree_sample_kernel_matches_plain_bitwise(dev, cap, n):
     np.testing.assert_array_equal(got.cpu().numpy(), walk)
 
 
+# every depth from 1 to 20 (so every length of the last round of the
+# kernel's 6-level rounds), leaves on two levels (257, 100,000, 200,000);
+# N each side of the warp and of a block's 4 warps
+@pytest.mark.parametrize("cap", [2 ** e for e in range(1, 21)]
+                         + [257, 100_000, 200_000])
+def test_sumtree_sample_kernel_partial_rounds_bitwise(dev, cap):
+    """The descent kernel against the plain descent, bitwise, one launch a
+    call and the same bits again, on trees with zero leaves."""
+    rng = np.random.default_rng(cap)
+    tree = np.zeros(2 * cap)
+    tree[cap:] = rng.integers(0, 4, cap)
+    for i in range(cap - 1, 0, -1):
+        tree[i] = tree[2 * i] + tree[2 * i + 1]
+    tree_d = torch.as_tensor(tree, device=dev)
+    for n in (1, 3, 4, 5, 31, 32, 33, 127, 128, 129, 448):
+        u = rng.random(n)
+        size = max(1, cap // 2) if n % 2 else cap
+        before = sumtree_sample.launches
+        got = sumtree_sample.sumtree_sample(
+            tree_d, torch.as_tensor(u, device=dev), size)
+        again = sumtree_sample.sumtree_sample(
+            tree_d, torch.as_tensor(u, device=dev), size)
+        torch.cuda.synchronize()
+        assert sumtree_sample.launches == before + 2
+        want = sumtree_sample.sumtree_sample_plain(
+            torch.as_tensor(tree), torch.as_tensor(u), size)
+        assert torch.equal(got.cpu(), want), (cap, n)
+        assert torch.equal(got, again)
+
+
 def test_device_per_on_card_matches_cpu(dev):
     """The same calls on the card and on the CPU: identical sampled
     indices, transitions and trees (the CPU buffer is held to the
@@ -466,7 +496,8 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
         q, k, v, causal=causal, window=window))          # deterministic
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
 @pytest.mark.parametrize("layout", ["transposed", "unaligned"])
 def test_flash_attention_kernel_reads_strided_views(dev, layout, dtype):
     """The model passes its [B,S,H,hd] projections transposed, without a
@@ -494,6 +525,32 @@ def test_flash_attention_kernel_reads_strided_views(dev, layout, dtype):
     err = float((got.float() - want.float()).abs().max())
     assert err < ATTN_TOL[dtype], err
     assert torch.equal(got, flash_attention.flash_attention(q, k, v))
+
+
+# the LM prefill's shape (runs c and d), the paper's sequence length, and
+# each head width the fp32 kernel pads (hd 32, 64, 80 -> 128, 128) over
+# several 32-key tiles with a ragged last one
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd", [
+    (4, 32, 8, 512, 512, 128), (1, 32, 8, 2048, 2048, 128),
+    (1, 8, 2, 333, 333, 32), (1, 8, 2, 333, 333, 64),
+    (1, 8, 2, 333, 333, 80), (1, 8, 2, 333, 333, 128)])
+def test_flash_attention_fp32_kernel_at_the_lm_shapes(dev, B, H, Hk, Sq, Sk,
+                                                      hd):
+    """The fp32 (3xTF32) kernel against the plain version at 2e-5, causal,
+    one launch a call and the same bits again."""
+    g = _gen(dev, Sq + hd)
+    q = torch.randn((B, H, Sq, hd), generator=g, device=dev)
+    k = torch.randn((B, Hk, Sk, hd), generator=g, device=dev)
+    v = torch.randn((B, Hk, Sk, hd), generator=g, device=dev)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v)
+    again = flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = flash_attention.flash_attention_plain(q, k, v)
+    err = float((got - want).abs().max())
+    assert err < ATTN_TOL[torch.float32], err
 
 
 # the sweep's shapes, ragged D and N < 16 (16-byte and 4-byte copies),

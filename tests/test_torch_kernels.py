@@ -347,6 +347,81 @@ def test_sumtree_kernel_algorithm_matches_host_oracle_bitwise(cap, n):
             np.testing.assert_array_equal(got, host.tree, err_msg=label)
 
 
+def _emulate_sumtree_sample(tree, u, size):
+    """numpy emulation of ``csrc/sumtree_sample.cu`` (one warp a sample):
+    rounds of 6 levels; in each, lane c (5 bits) loads the left children on
+    the path its bits take below node i (on level r the node is i 2^r +
+    (c >> (5 - r)); nothing at or past 2 cap, NaN here) and walks them with
+    the host's compare and subtraction (numpy float64 is IEEE), stopping at
+    the first node of its path >= cap; the lowest lane whose bits are the
+    walk's decisions hands its v and node to the warp.  A leaf at depth d
+    takes ceil(d / 6) rounds, and the lane handing over never read a
+    NaN."""
+    cap = len(tree) // 2
+    lanes = np.arange(32)
+    bits = [(lanes >> (4 - r)) & 1 for r in range(5)]
+
+    def gather(i):
+        node = 2 * ((i << np.arange(6)[:, None]) + (lanes >> (5 - np.arange(
+            6)[:, None])))                                      # [6, 32]
+        return np.where(node < 2 * cap, tree[np.minimum(node, 2 * cap - 1)],
+                        np.nan)
+
+    n = len(u)
+    seg = tree[1] / n
+    first = gather(1)             # with the root and the uniform
+    idx = []
+    for j in range(n):
+        v = (j + u[j]) * seg
+        i, left, rounds = 1, first, 0
+        while i < cap:
+            w, at = np.full(32, v), np.full(32, i)
+            on_path, live = np.ones(32, bool), np.ones(32, bool)
+            read_nan = np.zeros(32, bool)
+            for r in range(6):
+                live &= (i << r) + (lanes >> (5 - r)) < cap
+                read_nan |= live & np.isnan(left[r])
+                right = ~(w <= left[r])
+                if r < 5:
+                    on_path &= ~live | (right == (bits[r] == 1))
+                w = np.where(live & right, w - left[r], w)
+                at = np.where(live, 2 * ((i << r) + (lanes >> (5 - r)))
+                              + right, at)
+            src = int(np.argmax(on_path))
+            assert on_path[src] and not read_nan[src]
+            v, i = w[src], int(at[src])
+            rounds += 1
+            if i < cap:
+                left = gather(i)
+        assert rounds == -(-(i.bit_length() - 1) // 6)
+        idx.append(min(i - cap, size - 1))
+    return np.array(idx, np.int64)
+
+
+@pytest.mark.parametrize("cap", [1, 8, 100, 257, 2 ** 17, 100_000])
+@pytest.mark.parametrize("n", [1, 33, 256])
+def test_sumtree_sample_kernel_algorithm_matches_host_walk_bitwise(cap, n):
+    """The descent kernel's rounds (``_emulate_sumtree_sample``) against
+    the reference's host ``SumTree.sample`` on the same prefix sums,
+    bitwise: integer leaves with zeros, so prefix sums land on node
+    boundaries and zero leaves sit next to them; leaves on two levels (100,
+    257, 100,000), so a round stops inside; a last partial round (17
+    levels = 6 + 6 + 5); cap 1 (no step) and the size clamp.  The
+    wrapper's CPU path (the plain descent) agrees too."""
+    rng = np.random.default_rng(cap * 13 + n)
+    host = ref_replay.SumTree(cap)
+    host.set_many(np.arange(cap), rng.integers(0, 4, cap).astype(np.float64))
+    u = rng.random(n)
+    size = max(1, cap // 2) if n % 2 else cap
+    walk = np.minimum([host.sample(float(v)) for v in
+                       (np.arange(n) + u) * (host.total() / n)], size - 1)
+    np.testing.assert_array_equal(
+        _emulate_sumtree_sample(host.tree, u, size), walk)
+    plain = sumtree_sample.sumtree_sample(torch.as_tensor(host.tree),
+                                          torch.as_tensor(u), size)
+    np.testing.assert_array_equal(plain.numpy(), walk)
+
+
 def _tf32_round(a):
     """``a`` rounded to TF32 (to nearest, ties away from zero) as
     ``csrc/policy_mlp.cu`` rounds an operand's hi part: half a TF32 ulp

@@ -190,3 +190,117 @@ def test_ssm_kernel_arithmetic_matches_oracle(B, S, D, N, with_h0):
                                    atol=1e-4)
         np.testing.assert_allclose(h, np.asarray(want_h), rtol=1e-4,
                                    atol=1e-4)
+
+
+def _tf32_trunc(a):
+    """``a`` with the 13 bits TF32 drops cleared: the hi part of the
+    kernel's split, and what the tensor cores read of a TF32 operand."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split_products(a, b):
+    """The 3xTF32 products of one 8-deep k-step ``a @ b``: each operand
+    split as hi = tf32(x), lo = x - hi (read as TF32 by the mma), each
+    product exact (float64); returns hi.hi, lo.hi and hi.lo."""
+    f64 = np.float64
+    ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return [np.matmul(x.astype(f64), y.astype(f64))
+            for x, y in ((ah, bh), (al, bh), (ah, bl))]
+
+
+def _emulate_flash_attention_fp32(q, k, v, causal, window, bk=64,
+                                  three=True):
+    """numpy emulation of the fp32 kernel's arithmetic: hd zero-padded to
+    32, 64 or 128; per tile of ``bk`` keys S = Q K^T over k-steps of 8
+    columns, hi.hi into one fp32 accumulator and lo.hi + hi.lo into
+    another, summed at the end; scores in base 2 (times fp32 scale *
+    log2 e), masked ones -1e30, keys past Sk -inf; the online softmax
+    (max, 2^(s - max), the sum and the accumulator rescaled); the tile's
+    P V over steps of 8 keys (lo.hi, hi.lo, hi.hi) into a fresh fp32
+    accumulator, then added to the running one (in the kernel the keys 2t,
+    2t + 1 of each 8 are the fragment's k = t and t + 4: a sum order
+    inside the exact products); o = acc * (1 / max(l, 1e-30)).  Every mma
+    rounds its accumulator to fp32.  Tiles run over all keys: the ones
+    the kernel skips (past a warp's rows, before a window) change no
+    value, each row's own key being visible.  ``three=False`` is plain
+    TF32 (hi.hi alone)."""
+    f32 = np.float32
+    B, H, Sq, hd = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    hdp = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    skp = -(-Sk // bk) * bk
+
+    def pad(x, rows):
+        out = np.zeros(x.shape[:2] + (rows, hdp), f32)
+        out[:, :, :x.shape[2], :hd] = x
+        return out
+    q = pad(q, Sq)
+    k = np.repeat(pad(k, skp), H // Hk, axis=1)
+    v = np.repeat(pad(v, skp), H // Hk, axis=1)
+    sl2 = f32(f32(1.0 / np.sqrt(hd)) * f32(1.4426950408889634))
+    m = np.full((B, H, Sq), -1e30, f32)
+    l = np.zeros((B, H, Sq), f32)
+    acc = np.zeros((B, H, Sq, hdp), f32)
+    qi = np.arange(Sq)[:, None]
+    for kt in range(0, Sk, bk):
+        big = np.zeros((B, H, Sq, bk), f32)
+        small = np.zeros_like(big)
+        kk = k[:, :, kt:kt + bk]
+        for d0 in range(0, hdp, 8):
+            hh, lh, hl = _split_products(q[..., d0:d0 + 8],
+                                         kk[..., d0:d0 + 8].swapaxes(-1, -2))
+            big = (big + hh).astype(f32)
+            if three:
+                small = ((small + lh).astype(f32) + hl).astype(f32)
+        s = (small + big).astype(f32)
+        kj = kt + np.arange(bk)[None, :]
+        visible = np.ones((Sq, bk), bool)
+        if causal:
+            visible &= kj <= qi
+        if window > 0:
+            visible &= kj > qi - window
+        s = np.where(kj >= Sk, -np.inf,
+                     np.where(visible, (s * sl2).astype(f32), f32(-1e30)))
+        m_new = np.maximum(m, s.max(-1))
+        alpha = np.exp2(m - m_new).astype(f32)
+        p = np.exp2(s - m_new[..., None]).astype(f32)
+        l = (l * alpha + p.sum(-1, dtype=f32)).astype(f32)
+        tile = np.zeros_like(acc)
+        for k0 in range(0, bk, 8):
+            hh, lh, hl = _split_products(p[..., k0:k0 + 8],
+                                         v[:, :, kt + k0:kt + k0 + 8])
+            for prod in ((lh, hl, hh) if three else (hh,)):
+                tile = (tile + prod).astype(f32)
+        acc = ((acc * alpha[..., None]).astype(f32) + tile).astype(f32)
+        m = m_new
+    inv = (f32(1) / np.maximum(l, f32(1e-30))).astype(f32)
+    return (acc[..., :hd] * inv[..., None]).astype(f32)
+
+
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd,causal,window", [
+    (B, H, Hk, S, S, hd, causal, window)
+    for B, H, Hk, S, hd, causal, window in SWEEP] + [
+    (1, 4, 2, 40, 9, 32, False, 4), (1, 4, 2, 70, 300, 128, True, 0),
+    (1, 4, 2, 300, 170, 64, True, 0), (1, 4, 2, 200, 100, 64, False, 70),
+    (2, 4, 2, 33, 33, 20, True, 0), (1, 4, 4, 150, 150, 36, True, 16)])
+def test_attention_fp32_kernel_arithmetic_matches_oracle(B, H, Hk, Sq, Sk,
+                                                         hd, causal, window):
+    """The fp32 kernel's 3xTF32 arithmetic (``_emulate_flash_attention_fp32``:
+    the hi/lo split, the base-2 online softmax, P V on the tiles) against
+    the JAX oracle at the fp32 tolerance 2e-5, with 64- and 32-key tiles,
+    over the reference's sweep, ragged Sq and Sk, a row that sees no key,
+    and hd not a multiple of 8.  Plain TF32 misses 2e-5 on the sweep, so
+    the test tells the two apart."""
+    q, k, v = (RNG.normal(0, 1, s).astype(np.float32) for s in (
+        (B, H, Sq, hd), (B, Hk, Sk, hd), (B, Hk, Sk, hd)))
+    want = np.asarray(ref_ref.attention_reference(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, window=window))
+    for bk in (64, 32):
+        got = _emulate_flash_attention_fp32(q, k, v, causal, window, bk)
+        assert _err(got, want) < TOLS["float32"], (bk, _err(got, want))
+    if Sq == Sk and hd % 8 == 0:
+        plain_tf32 = _emulate_flash_attention_fp32(q, k, v, causal, window,
+                                                   three=False)
+        assert _err(plain_tf32, want) > TOLS["float32"]
