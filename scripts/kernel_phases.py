@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the ``sumtree``, ``actor_moe``, ``fused_mlp``, ``ssm_scan``,
-``sumtree_sample`` and fp32 ``flash_attention`` kernels spend their time,
+``sumtree_sample``, fp32 ``flash_attention`` and ``screen_score`` kernels
+spend their time,
 phase by phase, on one card (the machine has no ``ncu``).
 
 Copies the kernels' sources (``csrc/sumtree.cu``, ``actor_moe.cu``,
@@ -39,7 +40,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import sac  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.actor_moe import _flat_params  # noqa: E402
+from repro_torch.kernels import screen_score  # noqa: E402
 from repro_torch.kernels.policy_mlp import fused_mlp_cuda  # noqa: E402
+from repro_torch.ppa import surrogate  # noqa: E402
 
 OUT = ROOT / "experiments" / "dse" / "kernel_phases"
 MARKS = 16   # marks per block
@@ -150,10 +153,23 @@ FLASH = (
      ("\n}\n\ntemplate <int HDP>\nint launch_hdp(", "\n  MARK(3);", False)])
 
 
+# screen_score: one block an env; marks after the gather, each layer and
+# the heads
+SCREEN = (
+    ("screen_score", ("gather x", "layer 1", "layer 2", "heads + score")),
+    [("  const int t = threadIdx.x;\n", 0, True),
+     ("  {  // layer 1: thread t owns", 1, False),
+     ("  if (t < H2) {  // layer 2", 2, False),
+     ("  if (t < K) {  // heads", 3, False),
+     ("    score[b * K + t] = (w[1] * p[0] + w[2] * p[2]) - w[0] * p[1];\n"
+      "  }\n", 4, True)])
+
+
 SOURCES = {"sumtree": "sumtree", "actor_moe": "actor_moe",
            "fused_mlp": "policy_mlp", "ssm_scan": "ssm_scan",
            "sumtree_sample": "sumtree_sample",
-           "flash_attention": "flash_attention"}
+           "flash_attention": "flash_attention",
+           "screen_score": "screen_score"}
 
 
 def instrument(name: str, anchors) -> Path:
@@ -187,7 +203,8 @@ def main() -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
     for (name, _), anchors in (k for k in (SUMTREE, ACTOR, MLP, SSM, SAMPLE,
-                                           FLASH) if k[0][0] in chosen):
+                                           FLASH, SCREEN)
+                               if k[0][0] in chosen):
         src = instrument(name, anchors)
         obj = OUT / f"{name}.o"
         objs.append(str(obj))
@@ -201,7 +218,7 @@ def main() -> None:
     lib = ctypes.CDLL(str(lib_path))
     for name in ("sumtree_set_many", "actor_moe_forward", "fused_mlp_forward",
                  "ssm_scan_forward", "sumtree_sample",
-                 "flash_attention_forward"):
+                 "flash_attention_forward", "screen_score_forward"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = build.SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
@@ -232,6 +249,8 @@ def main() -> None:
         sample_phases(lib, dev, stream, marks)
     if "flash_attention" in chosen:
         flash_phases(lib, dev, stream, marks)
+    if "screen_score" in chosen:
+        screen_phases(lib, dev, stream, marks)
     print("SM clock after the runs: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True,
@@ -372,6 +391,28 @@ def flash_phases(lib, dev, stream, marks):
                                 np.diff(m[:, 2:4], axis=1)], axis=1),
                 ("prologue", "loop: copy wait and barrier", "loop: S = Q K^T",
                  "loop: softmax", "loop: P V", "epilogue"))
+
+
+def screen_phases(lib, dev, stream, marks):
+    params = surrogate.Surrogate.create(82, seed=2, device=dev).params
+    ws = [params[n][p] for n in ("l1", "l2", "head") for p in ("w", "b")]
+    labels = SCREEN[0][1]
+    for b, k in ((64, 4), (448, 4), (64, 8)):
+        s = torch.randn((b, 52), device=dev)
+        cand = torch.rand((b, k, 30), device=dev) * 2 - 1
+        w = torch.softmax(torch.randn((b, 3), device=dev), -1)
+        score = torch.empty((b, k), device=dev)
+        for _ in range(5):
+            build.check(lib.screen_score_forward(
+                s.data_ptr(), cand.data_ptr(), w.data_ptr(),
+                *(t.data_ptr() for t in ws), score.data_ptr(), b, k, stream),
+                "screen_score")
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            torch.testing.assert_close(score, screen_score.screen_scores_plain(
+                params, s, cand, w), rtol=1e-4, atol=1e-5)
+        summary(f"screen_score B={b} K={k}", marks("screen_score", b,
+                                                    len(labels)), labels)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,14 @@ harness.  The kernels, their checks and their timed shapes:
   cases, the LM prefill's shape, sequence 2,048, unaligned and transposed
   views and hd 32, 64, 80 and 128; q [4,32,512,128] and [1,32,2048,128]
   causal in fp32, and the first in fp16 (the fp16/bf16 kernel shares the
-  softmax and mask code).
+  softmax and mask code);
+- ``screen_score``: rtol 1e-4 / atol 1e-5 against the plain version, one
+  launch a call and a bitwise repeat, at (B, K) from (1, 1) to (448, 8)
+  (K not dividing the 16-row tile, B.K not a multiple of 16), and the
+  picks of ``screen_batch`` with half the gates open equal to the plain
+  picks wherever the two best plain scores of an env differ by more than
+  the tolerance (the rows compared are counted); B = 64, K = 4 (the
+  search's), B = 448, K = 4 (a campaign batch) and B = 64, K = 8.
 
 One JSON line per run; runs go in the order given, so that two trees
 alternate on one card.
@@ -45,6 +52,8 @@ alternate on one card.
     python3 scripts/search_kernels_ab.py --kernels sumtree_sample \\
         flash_attention_fp32 --tree P=experiments/dse/parent --tree C=. \\
         --runs P C C P
+    python3 scripts/search_kernels_ab.py --kernels screen_score fused_mlp \\
+        --tree P=experiments/dse/parent --tree C=. --runs P C C P
 """
 from __future__ import annotations
 
@@ -66,8 +75,9 @@ sys.path.insert(0, root)
 import chip_smoke as cs
 from repro_torch.core import replay, sac
 from repro_torch.kernels import (actor_moe, build, flash_attention,
-                                  policy_mlp, ssm_scan, sumtree,
-                                  sumtree_sample)
+                                  policy_mlp, screen_score, ssm_scan,
+                                  sumtree, sumtree_sample)
+from repro_torch.ppa import surrogate
 
 dev = torch.device("cuda")
 lib = build.build(verbose=True, defines=defines)
@@ -77,7 +87,8 @@ build._lib = build.load(lib)
 srcs = {"sumtree": "sumtree.cu", "actor_moe": "actor_moe.cu",
         "fused_mlp": "policy_mlp.cu", "ssm_scan": "ssm_scan.cu",
         "sumtree_sample": "sumtree_sample.cu",
-        "flash_attention_fp32": "flash_attention.cu"}
+        "flash_attention_fp32": "flash_attention.cu",
+        "screen_score": "screen_score.cu"}
 ptxas = [sec for sec in build.last_build_log.split("== ")
          if sec.startswith(tuple("nvcc " + srcs[k] for k in kernels))]
 out = dict(tree=tree_dir, defines=defines, lib=lib.name)
@@ -299,6 +310,43 @@ if "flash_attention_fp32" in kernels:
         t[f"flash_attention_{label}"] = 1e3 * cs.device_ms(
             lambda: flash_attention.flash_attention_cuda(q, k, v))
 
+if "screen_score" in kernels:
+    sur = surrogate.Surrogate.create(82, seed=2, device=dev).params
+
+    def screen_inputs(b, k):
+        return (torch.randn((b, 52), generator=gen, device=dev),
+                torch.rand((b, k, 30), generator=gen, device=dev) * 2 - 1,
+                torch.softmax(torch.randn((b, 3), generator=gen,
+                                          device=dev), -1))
+    worst, compared = 0.0, 0
+    for b, k in ((1, 1), (3, 3), (5, 1), (5, 7), (7, 8), (8, 4), (33, 4),
+                 (33, 6), (64, 4), (64, 8), (448, 4), (448, 8), (1000, 5)):
+        ins = screen_inputs(b, k)
+        worst = max(worst, once_repeatable(
+            f"screen_score B={b} K={k}", screen_score,
+            lambda: screen_score.screen_scores_cuda(sur, *ins),
+            lambda: screen_score.screen_scores_plain(sur, *ins), 1e-4, 1e-5))
+        # the picks, half the gates open, where the plain scores' two best
+        # differ by more than the tolerance
+        mask = torch.rand(b, generator=gen, device=dev) < 0.5
+        got = surrogate.screen_batch(sur, *ins, mask)
+        with torch.no_grad():
+            plain = screen_score.screen_scores_plain(sur, *ins)
+        want = torch.where(mask, plain.argmin(1), torch.zeros_like(got))
+        two = plain.topk(min(k, 2), dim=1, largest=False).values
+        apart = (two[:, -1] - two[:, 0] > 1e-5 + 1e-4 * two[:, 0].abs()) \
+            if k > 1 else torch.ones_like(mask)
+        if not torch.equal(got[apart], want[apart]):
+            sys.exit(f"screen_score B={b} K={k}: picks differ from the "
+                     "plain picks on well-separated envs")
+        compared += int(apart.sum())
+    out["screen_score_max_abs_err"] = worst
+    out["screen_score_picks_compared"] = compared
+    for b, k in ((64, 4), (448, 4), (64, 8)):
+        ins = screen_inputs(b, k)
+        t[f"screen_score_B{b}_K{k}"] = 1e3 * cs.device_ms(
+            lambda: screen_score.screen_scores_cuda(sur, *ins))
+
 proc, floor_lib = cs.start_floor_build(
     build.nvcc(), build.NVCC_FLAGS, os.path.join(root, "experiments", "dse",
                                                  "search_kernels_ab"))
@@ -318,7 +366,7 @@ def main() -> None:
     ap.add_argument("--kernels", nargs="+", default=["sumtree", "actor_moe"],
                     choices=["sumtree", "actor_moe", "fused_mlp",
                              "ssm_scan", "sumtree_sample",
-                             "flash_attention_fp32"])
+                             "flash_attention_fp32", "screen_score"])
     a = ap.parse_args()
     trees = dict(t.split("=", 1) for t in a.tree)
     card = subprocess.run(
