@@ -479,7 +479,7 @@ def main() -> None:
                                        shares["tanh_saturated"]) == 0.0:
                 fail(f"actor_moe hot B={b}: the inputs miss a clip or "
                      "the tanh's saturated region")
-    for b, k in ((33, 4), (64, 4)):
+    for b, k in ((33, 4), (64, 4), (448, 4)):
         s = torch.randn((b, 52), generator=gen, device=dev)
         cand = torch.rand((b, k, 30), generator=gen, device=dev) * 2 - 1
         w = torch.softmax(torch.randn((b, 3), generator=gen, device=dev), -1)
@@ -493,6 +493,20 @@ def main() -> None:
         if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
             fail(f"screen_score B={b} K={k} disagrees with the plain version "
                  f"(max abs err {err:.3e})")
+        # the picks (screen_batch, half the gates open) against the plain
+        # scores' argmin on the envs whose two best differ by more than the
+        # tolerance
+        open_ = torch.arange(b, device=dev) % 2 == 0
+        pick = sur.screen_batch(sur_params, s, cand, w, open_)
+        two = want.topk(2, dim=1, largest=False).values
+        apart = two[:, 1] - two[:, 0] > ATOL + RTOL * two[:, 0].abs()
+        plain_pick = torch.where(open_, want.argmin(1), 0)
+        log(f"parity screen_score B={b} K={k} picks: {int(apart.sum())} of "
+            f"{b} envs well apart, picks equal there: "
+            f"{bool(torch.equal(pick[apart], plain_pick[apart]))}")
+        if not torch.equal(pick[apart], plain_pick[apart]):
+            fail(f"screen_score B={b} K={k}: the kernel's picks differ from "
+                 "the plain picks on well-separated envs")
     # sumtree: bitwise against the plain version (float64 sums of final
     # children), duplicates last-write-wins, a scalar broadcast, N > 1024
     # split into ordered launches; the root against the sum of the leaves
@@ -728,14 +742,16 @@ def main() -> None:
               lambda: actor_moe.actor_forward_cuda(actor, s),
               lambda: actor_moe.actor_forward_plain(actor, s),
               actor_work(b, nbytes(actor)))
-    b, k = 64, 4
-    s = torch.randn((b, 52), generator=gen, device=dev)
-    cand = torch.rand((b, k, 30), generator=gen, device=dev) * 2 - 1
-    w = torch.softmax(torch.randn((b, 3), generator=gen, device=dev), -1)
-    timed(("screen_score", b), f"B={b} K={k}",
-          lambda: screen_score.screen_scores_cuda(sur_params, s, cand, w),
-          lambda: screen_score.screen_scores_plain(sur_params, s, cand, w),
-          screen_work(b, k, nbytes(sur_params)))
+    # the single search's shape, a campaign batch's and K_MAX
+    for b, k in ((64, 4), (448, 4), (64, 8)):
+        s = torch.randn((b, 52), generator=gen, device=dev)
+        cand = torch.rand((b, k, 30), generator=gen, device=dev) * 2 - 1
+        w = torch.softmax(torch.randn((b, 3), generator=gen, device=dev), -1)
+        timed(("screen_score", f"{b}x{k}"), f"B={b} K={k}",
+              lambda: screen_score.screen_scores_cuda(sur_params, s, cand, w),
+              lambda: screen_score.screen_scores_plain(sur_params, s, cand,
+                                                       w),
+              screen_work(b, k, nbytes(sur_params)), unit="tf32x3")
 
     tree = torch.as_tensor(np.random.default_rng(1).random(2 * SUMTREE_CAP),
                            device=dev)
@@ -841,6 +857,8 @@ def main() -> None:
         f"power {row['power_mw']:.3f} mW area {row['area_mm2']:.3f} mm2 "
         f"ppa_score {row['ppa_score']:.6f}")
     log(f"main path launches: {json.dumps(counts)}")
+    log(f"main path: {counts['screen_score']} of {len(disp)} dispatches "
+        "screened their candidates (one screen_score launch each)")
     for name in SEARCH_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the main path")
@@ -1206,7 +1224,7 @@ def main() -> None:
     for name, replaces, key, shape, path_counts in (
             ("actor_moe", "src/repro/kernels/actor_moe.py:75", 64, "B=64",
              counts),
-            ("screen_score", "src/repro/kernels/screen_score.py:66", 64,
+            ("screen_score", "src/repro/kernels/screen_score.py:66", "64x4",
              "B=64,K=4", counts),
             ("sumtree", "src/repro/kernels/sumtree.py:63", 448,
              f"N=448,cap={SUMTREE_CAP}", camp_counts),

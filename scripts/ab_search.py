@@ -51,7 +51,7 @@ if sys.argv[3] == "profile":
 
     tags = set()
     PORT_KERNELS = ("sumtree_set_many", "sumtree_sample", "actor_",
-                    "screen_scores", "fused_mlp")
+                    "screen_", "fused_mlp")
 
     def label(owner, name, tag):
         tags.add(tag)

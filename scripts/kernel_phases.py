@@ -75,24 +75,33 @@ ACTOR = (
      ("  mbar_wait(bars + BAR_RECV);\n", 10, True),
      ("    if (grow < B) gate[grow * E + t % E] = gs[t];\n  }\n", 11, True)])
 FIRST = "  if (tile == (int)blockIdx.x * G) MARK({});\n"   # the first tile's
-MLP = (
-    ("fused_mlp", ("issue copies", "x of tile", "wait W1", "layer 1 mma",
-                   "GELU 1 + barrier", "wait W2", "layer 2",
-                   "layer 3 + stores", "other tiles")),
-    [("  int tile = blockIdx.x * G + grp;\n", 0, True),
-     ("                   smem_addr(bars + 2)) : \"memory\");\n", 1, True),
-     ("    group_sync(grp);   // this tile's x has landed", FIRST.format(2),
-      False),
-     ("    mbar_wait(bars);\n", FIRST.format(3), True),
-     ("    mbar_wait(bars + 2);\n", FIRST.format(4), True),
-     ("    hidden_out(acc, sb1, c, nt1, hs1, L.sh1);\n    group_sync(grp);\n",
-      FIRST.format(5), True),
-     ("    mbar_wait(bars + 1);\n", FIRST.format(6), True),
-     ("    hidden_out(acc, sb2, c, nt2, hs2, L.sh2);\n    group_sync(grp);\n",
-      FIRST.format(7), True),
-     ("            store_f(y, (size_t)r * dout + cc, acc[j][i] + sb3[cc]);\n"
-      "        }\n      }\n    }\n", FIRST.format(8), True),
-     ("  }\n  // a group without tiles still has copies", 9, False)])
+# fused_mlp and screen_score: the tile loop of mlp_tf32.cuh, which both
+# include (spliced into each copy)
+BODY = [("  int tile = blockIdx.x * G + grp;\n", 0, True),
+        ("  float w3f[ntw<COLW>()][2];", 1, False),
+        ("  if constexpr (!EARLY) start_weights();\n", 2, False),
+        ("  if constexpr (!EARLY) start_weights();\n", 3, True),
+        ("  __syncthreads();   // the mbarriers are initialised before any "
+         "arrival\n", 4, True),
+        ("                   smem_addr(bars + 2)) : \"memory\");\n", 5, True),
+        ("    group_sync<GROUP>(grp);   // this tile's x has landed",
+         FIRST.format(6), False),
+        ("    mbar_wait(bars);\n", FIRST.format(7), True),
+        ("    mbar_wait(bars + 2);\n", FIRST.format(8), True),
+        ("    hidden_out<COLW>(acc, sb1, c, nt1, hs1, L.sh1);\n"
+         "    group_sync<GROUP>(grp);\n", FIRST.format(9), True),
+        ("    mbar_wait(bars + 1);\n", FIRST.format(10), True),
+        ("    hidden_out<COLW>(acc, sb2, c, nt2, hs2, L.sh2);\n"
+         "    group_sync<GROUP>(grp);\n", FIRST.format(11), True),
+        ("    rows.template store<COLW>(acc, tile, c, nt3, sb3, pro);\n",
+         FIRST.format(12), True),
+        ("  }\n  // a group without tiles still has copies", 13, False)]
+ENTRY = ("thread 0: TMA issue (early)", "x copies issued",
+         "thread 0: TMA issue (late)", "block barrier",
+         "W3 / bias copies issued", "x of tile", "wait W1", "layer 1 mma",
+         "GELU 1 + barrier", "wait W2", "layer 2")
+MLP = (("fused_mlp", ENTRY + ("layer 3 + stores", "other tiles")), BODY)
+SCREEN = (("screen_score", ENTRY + ("layer 3 + score", "other tiles")), BODY)
 # ssm_scan: timestamps 0-3 and, in slots 4-6, the loop's cycles summed over
 # its stages
 SSM = (
@@ -153,18 +162,6 @@ FLASH = (
      ("\n}\n\ntemplate <int HDP>\nint launch_hdp(", "\n  MARK(3);", False)])
 
 
-# screen_score: one block an env; marks after the gather, each layer and
-# the heads
-SCREEN = (
-    ("screen_score", ("gather x", "layer 1", "layer 2", "heads + score")),
-    [("  const int t = threadIdx.x;\n", 0, True),
-     ("  {  // layer 1: thread t owns", 1, False),
-     ("  if (t < H2) {  // layer 2", 2, False),
-     ("  if (t < K) {  // heads", 3, False),
-     ("    score[b * K + t] = (w[1] * p[0] + w[2] * p[2]) - w[0] * p[1];\n"
-      "  }\n", 4, True)])
-
-
 SOURCES = {"sumtree": "sumtree", "actor_moe": "actor_moe",
            "fused_mlp": "policy_mlp", "ssm_scan": "ssm_scan",
            "sumtree_sample": "sumtree_sample",
@@ -174,6 +171,10 @@ SOURCES = {"sumtree": "sumtree", "actor_moe": "actor_moe",
 
 def instrument(name: str, anchors) -> Path:
     src = (build.CSRC / f"{SOURCES[name]}.cu").read_text()
+    include = '#include "mlp_tf32.cuh"\n'
+    if include in src:   # the shared MLP body, so that its anchors are found
+        src = src.replace(include, (build.CSRC / "mlp_tf32.cuh").read_text()
+                          .replace("#pragma once\n", ""), 1)
     head = (f"__device__ long long g_marks_{name}[65536 * {MARKS}];\n"
             "#define BLOCK (blockIdx.x + gridDim.x * blockIdx.y)\n"
             f"#define MARK(i) do {{ if (threadIdx.x == 0) g_marks_{name}"
@@ -397,6 +398,7 @@ def screen_phases(lib, dev, stream, marks):
     params = surrogate.Surrogate.create(82, seed=2, device=dev).params
     ws = [params[n][p] for n in ("l1", "l2", "head") for p in ("w", "b")]
     labels = SCREEN[0][1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, k in ((64, 4), (448, 4), (64, 8)):
         s = torch.randn((b, 52), device=dev)
         cand = torch.rand((b, k, 30), device=dev) * 2 - 1
@@ -411,8 +413,11 @@ def screen_phases(lib, dev, stream, marks):
         with torch.no_grad():
             torch.testing.assert_close(score, screen_score.screen_scores_plain(
                 params, s, cand, w), rtol=1e-4, atol=1e-5)
-        summary(f"screen_score B={b} K={k}", marks("screen_score", b,
-                                                    len(labels)), labels)
+        tiles = -(-b * k // 16)
+        groups = 1 if tiles <= sms else 2
+        summary(f"screen_score B={b} K={k} ({groups} groups a CTA)",
+                marks("screen_score", min(-(-tiles // groups), sms),
+                      len(labels)), labels)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ harness.  The kernels, their checks and their timed shapes:
 - ``fused_mlp``: fp32 at rtol 1e-4 / atol 1e-5 and bf16 input at 3e-2, at
   B 1 to 28,672 (each side of the 16-row tile and of the launch's switch
   from 1 to 2 to 4 groups a CTA on 132 SMs), one launch a call and a
-  bitwise repeat; [448,82]->3 in fp32 and bf16, [4096,82]->52 and
-  [28672,82]->52 in fp32;
+  bitwise repeat, and the SHA-256 of its outputs at the three paths'
+  shapes (equal in two trees: bitwise equal); [448,82]->3 in fp32 and
+  bf16, [4096,82]->52 and [28672,82]->52 in fp32;
 - ``ssm_scan``: rtol/atol 1e-4 on y and the final state, with and without
   h0, at S 1 to 2,048 (each side of the 16-step stage), ragged D and N <
   16, one launch a call and a bitwise repeat; Jamba's [4,512,8192] N = 16;
@@ -36,7 +37,8 @@ harness.  The kernels, their checks and their timed shapes:
   softmax and mask code);
 - ``screen_score``: rtol 1e-4 / atol 1e-5 against the plain version, one
   launch a call and a bitwise repeat, at (B, K) from (1, 1) to (448, 8)
-  (K not dividing the 16-row tile, B.K not a multiple of 16), and the
+  (K not dividing the 16-row tile, B.K not a multiple of 16; s and cand
+  also one float off their 16- and 8-byte boundaries), and the
   picks of ``screen_batch`` with half the gates open equal to the plain
   picks wherever the two best plain scores of an env differ by more than
   the tolerance (the rows compared are counted); B = 64, K = 4 (the
@@ -66,7 +68,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RUN = r"""
-import json, os, sys
+import hashlib, json, os, sys
 import numpy as np, torch
 tree_dir, root = sys.argv[1], sys.argv[2]
 defines, kernels = json.loads(sys.argv[3]), json.loads(sys.argv[4])
@@ -206,6 +208,19 @@ if "fused_mlp" in kernels:
             if dtype == torch.float32:
                 worst = max(worst, err)
     out["fused_mlp_max_abs_err"] = worst
+    # the outputs' digests at the paths' shapes, from inputs of their own
+    # generator: equal digests in two trees are bitwise equal outputs
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    digests = {}
+    for b, d in ((448, 3), (4096, 52), (28672, 52)):
+        ws = [torch.randn(shape, generator=dgen, device=dev) * 0.1
+              for shape in ((82, 128), (128,), (128, 64), (64,), (64, d),
+                            (d,))]
+        x = torch.randn((b, 82), generator=dgen, device=dev)
+        with torch.no_grad():
+            y = policy_mlp.fused_mlp_cuda(x, *ws).cpu().numpy()
+        digests[f"[{b},82]->{d}"] = hashlib.sha256(y.tobytes()).hexdigest()
+    out["fused_mlp_sha256"] = digests
     for b, d, dtype in ((448, 3, torch.float32), (448, 3, torch.bfloat16),
                         (4096, 52, torch.float32),
                         (28672, 52, torch.float32)):
@@ -313,17 +328,22 @@ if "flash_attention_fp32" in kernels:
 if "screen_score" in kernels:
     sur = surrogate.Surrogate.create(82, seed=2, device=dev).params
 
-    def screen_inputs(b, k):
-        return (torch.randn((b, 52), generator=gen, device=dev),
-                torch.rand((b, k, 30), generator=gen, device=dev) * 2 - 1,
+    def screen_inputs(b, k, off=0):
+        # off = 1: s and cand one float off their 16- and 8-byte boundaries
+        return (torch.randn(b * 52 + off, generator=gen,
+                            device=dev)[off:].view(b, 52),
+                (torch.rand(b * k * 30 + off, generator=gen, device=dev) * 2
+                 - 1)[off:].view(b, k, 30),
                 torch.softmax(torch.randn((b, 3), generator=gen,
                                           device=dev), -1))
     worst, compared = 0.0, 0
-    for b, k in ((1, 1), (3, 3), (5, 1), (5, 7), (7, 8), (8, 4), (33, 4),
-                 (33, 6), (64, 4), (64, 8), (448, 4), (448, 8), (1000, 5)):
-        ins = screen_inputs(b, k)
+    for b, k, off in ((1, 1, 0), (3, 3, 0), (5, 1, 0), (5, 7, 0), (7, 8, 0),
+                      (8, 4, 0), (33, 4, 0), (33, 6, 0), (64, 4, 0),
+                      (64, 8, 0), (448, 4, 0), (448, 8, 0), (1000, 5, 0),
+                      (3, 3, 1), (64, 4, 1), (33, 6, 1)):
+        ins = screen_inputs(b, k, off)
         worst = max(worst, once_repeatable(
-            f"screen_score B={b} K={k}", screen_score,
+            f"screen_score B={b} K={k} offset {off}", screen_score,
             lambda: screen_score.screen_scores_cuda(sur, *ins),
             lambda: screen_score.screen_scores_plain(sur, *ins), 1e-4, 1e-5))
         # the picks, half the gates open, where the plain scores' two best

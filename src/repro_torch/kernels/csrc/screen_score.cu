@@ -1,4 +1,5 @@
-// Surrogate K-candidate screening scores for Hopper (sm_90a), fp32 FMA.
+// Surrogate K-candidate screening scores for Hopper (sm_90a), 3xTF32 on
+// the tensor cores.
 //
 // Replaces: src/repro/kernels/screen_score.py, `_screen_kernel` (pallas_call
 // in `screen_scores_pallas`).  Same function as the plain version
@@ -9,119 +10,205 @@
 // The argmin and the per-env gate select stay in torch, as in the reference.
 //
 // What bounds it on this card: at the search's shape (B = 64 envs, K = 4)
-// the work is 9.7 MFLOP on 122 KB of inputs and weights, a 0.14 us fp32
-// bound on the H100; a single launch of a few microseconds is what it
-// really costs.
+// the work is 9.7 MFLOP on 122 KB of inputs and weights: 0.06 us as
+// 3xTF32 on the tensor cores (0.14 us of fp32 FMA).  What it really costs
+// is the latency of one launch, of the weights' copies at entry and of
+// three dependent layers, whose mma.sync issue on one SM a tile sets the
+// pace.
 //
-// Design, and what it does about that: one block per env scores that env's
-// K candidate rows (B = 64 blocks), so every SM that has work runs one
-// short dependent chain of three layers.  The 76 KB of weights are read
-// through L2 (each block reads every weight once and uses it for all K rows
-// held in registers), which avoids staging them in shared memory: a block
-// never re-reads a weight, so a shared-memory copy would only add a pass.
-// Sums run in a fixed order with no atomics, so the kernel is
-// deterministic.  fp32 FMA only.
-#include <cuda_runtime.h>
+// Design, and what it does about that: the B.K candidate rows go through
+// fused_mlp's body (mlp_tf32.cuh: 3xTF32 mma.sync.m16n8k8, W1 and W2 by
+// tensor copies into shared memory, 16-row tiles), so B = 64, K = 4 is 16
+// tiles on 16 SMs, one CTA of one group each (two groups a CTA once the
+// tiles outnumber the SMs).  Three choices of that body that fused_mlp
+// does not take: the tensor copies start before anything else (EARLY: W1
+// has landed by the time x has); layer 3's 8 k-blocks are split over the
+// 8 warps and summed by warp 0, with each warp's W3 fragment read into
+// registers at entry instead of staging W3 (SPLIT3: a chain of 3 mma a
+// warp instead of 24 in one); and 8 warps a tile instead of 4 (two a
+// sub-core; 4 were slower, 16 no faster).  A tile's rows are
+// gathered as they load: b = row / K per row, since a tile may hold an
+// env's candidates in part (K does not divide 16), rows past B.K
+// zero-filled and never stored; s[b] in 16-byte and cand[b, k] in 8-byte
+// pieces where s and cand are 16- and 8-byte aligned (a row of s is 208
+// bytes, of cand 120), else in 4-byte ones; the env's weight row lands in
+// words 88-90 of the row, past the products' k, and the epilogue reads it
+// from there: pred2 is shuffled to the lane that holds pred0 and pred1,
+// which adds the bias and combines the score in the plain version's order
+// (no contraction into FMA).  No atomics and a fixed order of sums: the
+// kernel is repeatable bit for bit.
+#include "mlp_tf32.cuh"
 
 namespace {
 
 constexpr int S = 52;          // SAC state dim
 constexpr int C = 30;          // continuous action dim
 constexpr int IN = S + C;      // 82
+constexpr int K1 = 88;         // IN rounded up to 8: then the weight row
 constexpr int H1 = 128;
 constexpr int H2 = 64;
 constexpr int NT = 3;          // (power, perf, area) heads
-constexpr int KMAX = 8;        // candidates per env handled by one block
-constexpr int THREADS = H1;
+constexpr int KMAX = 8;        // candidates an env
+constexpr int COLW = 8;        // warps a 16-row tile
+constexpr int GROUP = 32 * COLW;
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float k1 = 0.044715f;
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + k1 * x * x * x)));
+// 8 or 16 bytes from global to shared memory, zeros where !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-screen_scores(const float* __restrict__ s, const float* __restrict__ cand,
-              const float* __restrict__ weights,
-              const float* __restrict__ w1, const float* __restrict__ b1,
-              const float* __restrict__ w2, const float* __restrict__ b2,
-              const float* __restrict__ w3, const float* __restrict__ b3,
-              float* __restrict__ score, int K) {
-  __shared__ float x[KMAX][IN];
-  __shared__ float h1[KMAX][H1];
-  __shared__ float h2[KMAX][H2];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-
-  for (int i = t; i < K * IN; i += THREADS) {
-    const int kk = i / IN, c = i % IN;
-    x[kk][c] = c < S ? s[b * S + c] : cand[((size_t)b * K + kk) * C + (c - S)];
-  }
-  __syncthreads();
-
-  {  // layer 1: thread t owns hidden unit t for all K candidates
-    float acc[KMAX];
-    const float bias = b1[t];
-#pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = 0.0f;
-#pragma unroll 2
-    for (int i = 0; i < IN; ++i) {
-      const float w = w1[i * H1 + t];
-#pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk)
-        if (kk < K) acc[kk] = fmaf(x[kk][i], w, acc[kk]);
+// rows r = b K + k of [s[b] || cand[b, k]] in, score [B, K] out
+struct ScreenRows {
+  static constexpr bool BF16 = false;
+  const float* s;
+  const float* cand;
+  const float* weights;
+  float* score;
+  int n, K;   // rows (B K), candidates an env
+  bool wide;  // s 16-byte and cand 8-byte aligned: wider copies
+  __device__ int count() const { return n; }
+  // start the copies of tile `tile`'s rows into `dst` [16][sx] by the
+  // group's threads (gt), GROUP / 16 a row, zeros past the rows and past 82
+  // (up to k1 = 88), and of each row's env weights into words 88-90 (past
+  // the products' k, read by the epilogue).  Wide: s[b] as 13 pieces of 16
+  // bytes (a row of s is 208 bytes, so 16-byte aligned where s is),
+  // cand[b, k] as 15 of 8 (a row is 120 bytes), 3 pieces of 8 zero bytes;
+  // else 4-byte pieces.
+  template <int GROUP_>
+  __device__ __forceinline__ void copy(float* dst, int tile, const Layout& L,
+                                       int gt) const {
+    static_assert(K1 + 3 <= 104, "the weight row within x's row stride");
+    constexpr int TPR = GROUP_ / ROWS;             // threads a row
+    const int r = gt / TPR, row = tile * ROWS + r;
+    const bool in = row < n;
+    const float* srow = s + (size_t)(in ? row / K : 0) * S;
+    const float* crow = cand + (size_t)(in ? row : 0) * C;
+    const float* wrow = weights + (size_t)(in ? row / K : 0) * 3;
+    float* d = dst + r * L.sx;
+    if (wide) {
+      for (int p = gt % TPR; p < 34; p += TPR) {
+        if (p < 13)
+          cp_async16(d + 4 * p, srow + 4 * p, in);
+        else if (p < 28)
+          cp_async8(d + S + 2 * (p - 13), crow + 2 * (p - 13), in);
+        else if (p < 31)
+          cp_async8(d + IN + 2 * (p - 28), s, false);
+        else
+          cp_async4(d + K1 + p - 31, wrow + p - 31, in);
+      }
+    } else {
+      for (int p = gt % TPR; p < K1 + 3; p += TPR) {
+        const bool ok = in && (p < IN || p >= K1);
+        cp_async4(d + p, !ok ? s : p < S ? srow + p
+                         : p < IN ? crow + (p - S) : wrow + (p - K1), ok);
+      }
     }
-#pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk)
-      if (kk < K) h1[kk][t] = gelu_tanh(acc[kk] + bias);
   }
-  __syncthreads();
-
-  if (t < H2) {  // layer 2
-    float acc[KMAX];
-    const float bias = b2[t];
+  // what the epilogue needs of this tile's x buffer, read while it is
+  // there: the env weights of rows g and g + 8, in warp 0's lanes (g, 0)
+  struct Pro {
+    float w[2][3];
+  };
+  template <int COLW_>
+  __device__ __forceinline__ Pro prologue(const float* x, int sx,
+                                          int c) const {
+    Pro pro{};
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    if (c == 0 && t == 0) {
 #pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) acc[kk] = 0.0f;
-#pragma unroll 4
-    for (int i = 0; i < H1; ++i) {
-      const float w = w2[i * H2 + t];
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk)
-        if (kk < K) acc[kk] = fmaf(h1[kk][i], w, acc[kk]);
+        for (int i = 0; i < 3; ++i)
+          pro.w[h][i] = x[(g + 8 * h) * sx + K1 + i];
     }
-#pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk)
-      if (kk < K) h2[kk][t] = gelu_tanh(acc[kk] + bias);
+    return pro;
   }
-  __syncthreads();
-
-  if (t < K) {  // heads + score combine (the epilogue)
-    float p[NT];
+  // layer 3's one n-tile is warp 0's (columns 0-7, 3-7 zero): lane (g, t)
+  // holds columns 2t, 2t + 1 of rows g and g + 8, so pred0 and pred1 sit in
+  // lane (g, 0) and pred2 in lane (g, 1)
+  template <int COLW_>
+  __device__ __forceinline__ void store(const float (&acc)[ntw<COLW_>()][4],
+                                        int tile, int c, int nt3,
+                                        const float* sb3,
+                                        const Pro& pro) const {
+    if (nt3 == 0) return;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float top2 = __shfl_down_sync(0xffffffffu, acc[0][0], 1);
+    const float bot2 = __shfl_down_sync(0xffffffffu, acc[0][2], 1);
+    if (t != 0) return;
 #pragma unroll
-    for (int o = 0; o < NT; ++o) {
-      float acc = 0.0f;
-      for (int i = 0; i < H2; ++i) acc = fmaf(h2[t][i], w3[i * NT + o], acc);
-      p[o] = acc + b3[o];
+    for (int h = 0; h < 2; ++h) {
+      const int row = tile * ROWS + g + 8 * h;
+      if (row < n) {
+        const float* w = pro.w[h];             // (perf, power, area)
+        const float p0 = acc[0][2 * h] + sb3[0];
+        const float p1 = acc[0][2 * h + 1] + sb3[1];
+        const float p2 = (h ? bot2 : top2) + sb3[2];
+        score[row] = __fsub_rn(__fadd_rn(__fmul_rn(w[1], p0),
+                                         __fmul_rn(w[2], p2)),
+                               __fmul_rn(w[0], p1));
+      }
     }
-    const float* w = weights + b * 3;  // (w_perf, w_power, w_area)
-    score[b * K + t] = (w[1] * p[0] + w[2] * p[2]) - w[0] * p[1];
   }
+};
+
+template <int G>
+__global__ void __launch_bounds__(GROUP * G, 1)
+screen_kernel(const ScreenRows rows, const Weights w,
+              const __grid_constant__ CUtensorMap w1map,
+              const __grid_constant__ CUtensorMap w2map) {
+  mlp_tiles<ScreenRows, G, COLW, true, true>(rows, w, IN, H1, H2, NT, &w1map,
+                                            &w2map);
+}
+
+template <int G>
+int launch(const ScreenRows& rows, const float* w1, const float* w2,
+           const Weights& w, int device, int sms, cudaStream_t stream) {
+  static bool ready[MAX_DEVICES];   // the shared-memory limit and carveout
+  auto kernel = screen_kernel<G>;
+  const Layout L(IN, H1, H2, NT, false, G);
+  CUtensorMap m1, m2;
+  const cudaError_t e =
+      prepare(kernel, ready, device, L, w1, w2, IN, H1, H2, &m1, &m2);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int ctas = ((rows.n + ROWS - 1) / ROWS + G - 1) / G;
+  kernel<<<ctas < sms ? ctas : sms, GROUP * G, L.bytes(), stream>>>(
+      rows, w, m1, m2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point bound with ctypes.  Device pointers of contiguous
 // float32 tensors: s [B,52], cand [B,K,30], weights [B,3], w1 [82,128],
-// b1 [128], w2 [128,64], b2 [64], w3 [64,3], b3 [3]; out score [B,K].
-// 1 <= K <= 8.  Returns cudaGetLastError() after the launch (0 on success).
+// b1 [128], w2 [128,64], b2 [64], w3 [64,3], b3 [3] (w1 and w2 16-byte
+// aligned); out score [B,K].  1 <= K <= 8.  One CTA a tile of 16 rows
+// while the tiles fit on the SMs, then two groups a CTA.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int screen_score_forward(
     const float* s, const float* cand, const float* weights,
     const float* w1, const float* b1, const float* w2, const float* b2,
     const float* w3, const float* b3, float* score, int B, int K,
     void* stream) {
   if (B <= 0) return 0;
-  if (K < 1 || K > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  screen_scores<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, cand, weights, w1, b1, w2, b2, w3, b3, score, K);
-  return static_cast<int>(cudaGetLastError());
+  if (K < 1 || K > KMAX || reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w2) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  const cudaError_t e = device_sms(&device, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool wide = reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(cand) % 8 == 0;
+  const ScreenRows rows{s, cand, weights, score, B * K, K, wide};
+  const Weights w{b1, b2, w3, b3};
+  const int tiles = (rows.n + ROWS - 1) / ROWS;
+  auto run = tiles <= sms ? launch<1> : launch<2>;
+  return run(rows, w1, w2, w, device, sms, static_cast<cudaStream_t>(stream));
 }

@@ -53,6 +53,10 @@ def screen_scores_cuda(params: Dict, s: torch.Tensor, cand: torch.Tensor,
             raise ValueError(
                 f"screen_score: expected contiguous float32 {shape} on "
                 f"{s.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if ws[0].data_ptr() % 16 or ws[2].data_ptr() % 16:
+        raise ValueError("screen_score: l1 and l2 weights must be 16-byte "
+                         "aligned (the kernel copies them with tensor "
+                         "copies)")
     score = torch.empty((b, k), dtype=torch.float32, device=s.device)
     lib = build.library()
     stream = torch.cuda.current_stream(s.device).cuda_stream

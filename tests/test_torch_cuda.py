@@ -76,7 +76,8 @@ def test_actor_kernel_matches_plain(dev, b, scale):
         assert torch.equal(g, a)          # deterministic
 
 
-@pytest.mark.parametrize("b,k", [(64, 4), (33, 4), (7, 8), (5, 1)])
+@pytest.mark.parametrize("b,k", [(64, 4), (33, 4), (7, 8), (5, 1),
+                                 (448, 4), (64, 8), (3, 3), (1, 1)])
 def test_screen_kernel_matches_plain(dev, b, k):
     params = sur.Surrogate.create(82, seed=2, device=dev).params
     g = _gen(dev, b * 10 + k)
@@ -91,6 +92,48 @@ def test_screen_kernel_matches_plain(dev, b, k):
         want = screen_score.screen_scores_plain(params, s, cand, w)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     assert torch.equal(got, screen_score.screen_scores(params, s, cand, w))
+
+
+@pytest.mark.parametrize("b,k", [(64, 4), (33, 3), (5, 7)])
+def test_screen_kernel_takes_unaligned_rows(dev, b, k):
+    """s and cand one float off their 16- and 8-byte boundaries: the kernel
+    gathers the rows in 4-byte pieces instead of 16- and 8-byte ones and
+    still matches the plain version."""
+    params = sur.Surrogate.create(82, seed=2, device=dev).params
+    g = _gen(dev, 11 * b + k)
+    s = torch.randn(b * 52 + 1, generator=g, device=dev)[1:].view(b, 52)
+    cand = (torch.rand(b * k * 30 + 1, generator=g, device=dev) * 2
+            - 1)[1:].view(b, k, 30)
+    w = torch.softmax(torch.randn((b, 3), generator=g, device=dev), -1)
+    got = screen_score.screen_scores(params, s, cand, w)
+    with torch.no_grad():
+        want = screen_score.screen_scores_plain(params, s, cand, w)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,k", [(64, 4), (448, 4), (33, 6)])
+def test_screen_batch_kernel_picks_match_plain(dev, b, k):
+    """screen_batch through the kernel, half the gates open, picks the
+    plain scores' argmin wherever an env's two best plain scores are well
+    apart (1e-3, a hundred times the kernel's tolerance), and 0 where the
+    gate is closed."""
+    params = sur.Surrogate.create(82, seed=2, device=dev).params
+    g = _gen(dev, 7 * b + k)
+    s = torch.randn((b, 52), generator=g, device=dev)
+    cand = torch.rand((b, k, 30), generator=g, device=dev) * 2 - 1
+    w = torch.softmax(torch.randn((b, 3), generator=g, device=dev), -1)
+    mask = torch.arange(b, device=dev) % 2 == 0
+    before = screen_score.launches
+    pick = sur.screen_batch(params, s, cand, w, mask)
+    assert screen_score.launches == before + 1
+    with torch.no_grad():
+        plain = screen_score.screen_scores_plain(params, s, cand, w)
+    two = plain.topk(2, dim=1, largest=False).values
+    apart = two[:, 1] - two[:, 0] > 1e-3
+    assert int(apart.sum()) >= b // 2
+    want = torch.where(mask, plain.argmin(1), torch.zeros_like(pick))
+    assert torch.equal(pick[apart], want[apart])
+    assert (pick[~mask] == 0).all()
 
 
 def test_wrappers_check_their_inputs(dev):

@@ -503,6 +503,49 @@ def test_fused_mlp_kernel_arithmetic_matches_reference(b, d_out, dtype):
         np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
 
 
+
+def _emulate_screen_score(params, s, cand, w, three=True):
+    """numpy emulation of ``csrc/screen_score.cu``'s arithmetic: the rows
+    [s[b] || cand[b, k]] through ``fused_mlp``'s 3xTF32 body
+    (``_emulate_fused_mlp``), then the score from layer 3's outputs in the
+    plain version's order, in fp32 without contraction."""
+    b, k = cand.shape[:2]
+    x = np.concatenate([np.repeat(s[:, None], k, axis=1), cand],
+                       axis=-1).reshape(b * k, -1)
+    ws = [np.asarray(params[n][p], np.float32)
+          for n in ("l1", "l2", "head") for p in ("w", "b")]
+    pred = _emulate_fused_mlp(x, ws, three=three).reshape(b, k, 3)
+    w = w[:, None].astype(np.float32)
+    return ((w[..., 1] * pred[..., 0] + w[..., 2] * pred[..., 2])
+            - w[..., 0] * pred[..., 1])
+
+
+@pytest.mark.parametrize("b,k", [(8, 4), (33, 6), (64, 4), (5, 1), (64, 8)])
+def test_screen_kernel_arithmetic_matches_reference(b, k):
+    """The CUDA kernel's 3xTF32 arithmetic (``_emulate_screen_score``)
+    against the JAX oracle (``ref.screen_scores_reference``) and the Pallas
+    kernel in interpret mode at rtol 1e-4 / atol 1e-5, the tolerance the
+    kernel is held to against its plain version on the card, with the
+    reference's ``screen_batch`` picks (half the gates open).  Plain TF32
+    (one product) misses that tolerance, so the test tells the two
+    apart."""
+    jp, _ = _sur_params()
+    params = jax.tree_util.tree_map(np.asarray, jp)
+    s, cand, w = _screen_inputs(b, k)
+    got = _emulate_screen_score(params, s, cand, w)
+    js, jc, jw = jnp.asarray(s), jnp.asarray(cand), jnp.asarray(w)
+    want = np.asarray(ref_ref.screen_scores_reference(jp, js, jc, jw))
+    pallas = np.asarray(ref_ops.screen_scores(jp, js, jc, jw))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    mask = np.arange(b) % 2 == 0
+    want_pick = np.asarray(ref_sur.screen_batch(jp, js, jc, jw,
+                                                jnp.asarray(mask)))
+    np.testing.assert_array_equal(np.where(mask, got.argmin(1), 0),
+                                  want_pick)
+    plain_tf32 = _emulate_screen_score(params, s, cand, w, three=False)
+    assert not np.allclose(plain_tf32, want, rtol=RTOL, atol=ATOL)
+
 def test_fused_mlp_wrapper_refuses_what_the_kernel_cannot_take():
     """The CUDA wrapper's checks run before any launch: widths the
     kernel's tensor maps cannot take (h1 or h2 not a multiple of 4, d_in
@@ -529,3 +572,25 @@ def test_fused_mlp_wrapper_refuses_what_the_kernel_cannot_take():
                                                   dtype=torch.bfloat16),
                                       w1_odd, *ws[1:])
     assert ops.launch_counts()["fused_mlp"] == 0
+
+
+def test_screen_wrapper_refuses_what_the_kernel_cannot_take():
+    """The CUDA wrapper's checks run before any launch: K outside [1, 8],
+    a wrong shape, and l1 or l2 weights off a 16-byte boundary (the kernel
+    copies W1 and W2 with tensor copies) are refused with a ValueError,
+    and no launch is counted."""
+    ops.reset_launch_counts()
+    _, tp = _sur_params()
+    s, cand, w = (torch.as_tensor(x) for x in _screen_inputs(4, 4))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="K must be"):
+            screen_score.screen_scores_cuda(tp, s, torch.zeros((4, 9, 30)), w)
+        with pytest.raises(ValueError, match="expected contiguous"):
+            screen_score.screen_scores_cuda(tp, s[:, :51], cand, w)
+        for layer, shape in (("l1", (82, 128)), ("l2", (128, 64))):
+            flat = torch.zeros(shape[0] * shape[1] + 1)
+            shifted = {**tp, layer: {"w": flat[1:].view(shape),
+                                     "b": tp[layer]["b"]}}
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                screen_score.screen_scores_cuda(shifted, s, cand, w)
+    assert ops.launch_counts()["screen_score"] == 0
