@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
 """Where the ``sumtree``, ``actor_moe``, ``fused_mlp``, ``ssm_scan``,
 ``sumtree_sample``, fp32 ``flash_attention`` and ``screen_score`` kernels
-spend their time,
-phase by phase, on one card (the machine has no ``ncu``).
+spend their time, phase by phase, on one card (the machine has no ``ncu``).
 
 Copies the kernels' sources (``csrc/sumtree.cu``, ``actor_moe.cu``,
 ``policy_mlp.cu``, ``ssm_scan.cu``, ``sumtree_sample.cu``,
-``flash_attention.cu``) into the git-ignored
-``experiments/dse/kernel_phases/``, inserts ``clock64()`` marks that thread
-0 of each block writes into a ``__device__`` array at the boundaries of the
-kernels' phases (the marks are anchored on the sources' own comments and
-statements, so an edited source fails here loudly), builds the copies with
-the repository's ``nvcc`` flags and runs them at the paths' shapes.
-Prints, per shape, the SM cycles of each phase: for ``sumtree`` the one
-block's, for the others the median and the maximum over the blocks
-(``fused_mlp``: the block's first tile, then all its tiles; ``ssm_scan``:
-the loop's cycles summed over its stages as copy and wait, compute and the
-closing barrier; ``sumtree_sample``: warp 0's sample, its first round trip
-and each round; fp32 ``flash_attention``: warp 0's prologue, its
-tile loop summed as copy wait and barrier, S = Q K^T, softmax and P V, and
-the epilogue), and the SM clock ``nvidia-smi`` reads after the runs.
+``flash_attention.cu``, ``screen_score.cu``; the shared MLP body
+``mlp_tf32.cuh`` spliced into the two that include it) into the
+git-ignored ``experiments/dse/kernel_phases/``, inserts ``clock64()``
+marks that thread 0 of each block writes into a ``__device__`` array at
+the boundaries of the kernels' phases (the marks are anchored on the
+sources' own comments and statements, so an edited source fails here
+loudly), builds the copies with the repository's ``nvcc`` flags and runs
+them at the paths' shapes.  Prints, per shape, the SM cycles of each
+phase: for ``sumtree`` the one block's, for the others the median and the
+maximum over the blocks (``fused_mlp`` and ``screen_score``: the block's
+first tile, then all its tiles; ``ssm_scan``: the loop's cycles summed
+over its stages as copy and wait, compute and the closing barrier;
+``sumtree_sample``: warp 0's sample, its first round trip and each round;
+fp32 ``flash_attention``: warp 0's prologue, its tile loop summed as copy
+wait and barrier, S = Q K^T, softmax and P V, and the epilogue), and the
+SM clock ``nvidia-smi`` reads after the runs.
 
     python3 scripts/kernel_phases.py [--kernels sumtree actor_moe ...]
 """

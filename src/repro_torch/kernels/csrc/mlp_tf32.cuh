@@ -49,7 +49,6 @@ namespace {
 
 constexpr int ROWS = 16;                         // rows a tile (the mma's m)
 constexpr int MAX_WIDTH = 128;
-constexpr int MAX_DIN = 256;
 constexpr int MAX_DEVICES = 64;
 constexpr int MAX_SMEM = 232448;                 // a block's limit, 227 KB
 
@@ -479,7 +478,8 @@ __device__ __forceinline__ void mlp_tiles(const Rows& rows, const Weights& w,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// cuTensorMapEncodeTiled's type (the driver's, found through the runtime)
+// cuTensorMapEncodeTiled's type (a CUDA library entry point, looked up
+// through the runtime)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,

@@ -33,6 +33,7 @@ namespace {
 
 constexpr int COL_WARPS = 4;                     // warps a 16-row tile
 constexpr int GROUP = 32 * COL_WARPS;
+constexpr int MAX_DIN = 256;                     // rows of W1's box
 
 __device__ __forceinline__ void store_f(float* p, size_t i, float v) {
   p[i] = v;
