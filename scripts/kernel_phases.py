@@ -80,27 +80,26 @@ FIRST = "  if (tile == (int)blockIdx.x * G) MARK({});\n"   # the first tile's
 # include (spliced into each copy)
 BODY = [("  int tile = blockIdx.x * G + grp;\n", 0, True),
         ("  float w3f[ntw<COLW>()][2];", 1, False),
-        ("  if constexpr (!EARLY) start_weights();\n", 2, False),
-        ("  if constexpr (!EARLY) start_weights();\n", 3, True),
         ("  __syncthreads();   // the mbarriers are initialised before any "
-         "arrival\n", 4, True),
-        ("                   smem_addr(bars + 2)) : \"memory\");\n", 5, True),
+         "arrival\n", 2, False),
+        ("  __syncthreads();   // the mbarriers are initialised before any "
+         "arrival\n", 3, True),
+        ("                   smem_addr(bars + 2)) : \"memory\");\n", 4, True),
         ("    group_sync<GROUP>(grp);   // this tile's x has landed",
-         FIRST.format(6), False),
-        ("    mbar_wait(bars);\n", FIRST.format(7), True),
-        ("    mbar_wait(bars + 2);\n", FIRST.format(8), True),
+         FIRST.format(5), False),
+        ("    mbar_wait(bars);\n", FIRST.format(6), True),
+        ("    mbar_wait(bars + 2);\n", FIRST.format(7), True),
         ("    hidden_out<COLW>(acc, sb1, c, nt1, hs1, L.sh1);\n"
-         "    group_sync<GROUP>(grp);\n", FIRST.format(9), True),
-        ("    mbar_wait(bars + 1);\n", FIRST.format(10), True),
+         "    group_sync<GROUP>(grp);\n", FIRST.format(8), True),
+        ("    mbar_wait(bars + 1);\n", FIRST.format(9), True),
         ("    hidden_out<COLW>(acc, sb2, c, nt2, hs2, L.sh2);\n"
-         "    group_sync<GROUP>(grp);\n", FIRST.format(11), True),
+         "    group_sync<GROUP>(grp);\n", FIRST.format(10), True),
         ("    rows.template store<COLW>(acc, tile, c, nt3, sb3, pro);\n",
-         FIRST.format(12), True),
-        ("  }\n  // a group without tiles still has copies", 13, False)]
-ENTRY = ("thread 0: TMA issue (early)", "x copies issued",
-         "thread 0: TMA issue (late)", "block barrier",
-         "W3 / bias copies issued", "x of tile", "wait W1", "layer 1 mma",
-         "GELU 1 + barrier", "wait W2", "layer 2")
+         FIRST.format(11), True),
+        ("  }\n  // a group without tiles still has copies", 12, False)]
+ENTRY = ("thread 0: TMA issue", "(W3 loads and) x copies issued",
+         "block barrier", "W3 / bias copies issued", "x of tile", "wait W1",
+         "layer 1 mma", "GELU 1 + barrier", "wait W2", "layer 2")
 MLP = (("fused_mlp", ENTRY + ("layer 3 + stores", "other tiles")), BODY)
 SCREEN = (("screen_score", ENTRY + ("layer 3 + score", "other tiles")), BODY)
 # ssm_scan: timestamps 0-3 and, in slots 4-6, the loop's cycles summed over

@@ -12,16 +12,16 @@
 //
 // A tile's 16 rows belong to one group of COLW warps, which split each
 // layer's 8-column n-tiles (c, c + COLW, ...); G groups a CTA, each
-// walking over its own tiles while the weights are shared.  At entry
-// thread 0 starts two tensor copies (TMA, completion counted on an
-// mbarrier each): W1 and W2 whole, each as one box whose rows are padded
-// in shared memory to a stride of 4 mod 8 words and whose rows and columns
-// past the tensor are zero-filled by the copy (K = 82 becomes 88).  W3 and
-// the biases, too small or too ragged for a tensor map (W3's rows are 12
-// bytes at d_out = 3), and each group's first x tile come by cp.async
-// meanwhile, zero-padded the same way.  Layer 1 starts as soon as W1 has
-// landed, while W2 streams in, and each group's next x tile streams into
-// its second buffer while the current one runs.  Each layer is
+// walking over its own tiles while the weights are shared.  First thing
+// at entry, thread 0 starts two tensor copies (TMA, completion counted on
+// an mbarrier each): W1 and W2 whole, each as one box whose rows are
+// padded in shared memory to a stride of 4 mod 8 words and whose rows and
+// columns past the tensor are zero-filled by the copy (K = 82 becomes 88).
+// Each group's first x tile, then W3 and the biases, too small or too
+// ragged for a tensor map (W3's rows are 12 bytes at d_out = 3), come by
+// cp.async meanwhile, zero-padded the same way.  Layer 1 starts as soon
+// as W1 has landed, while W2 streams in, and each group's next x tile
+// streams into its second buffer while the current one runs.  Each layer is
 // mma.sync.m16n8k8 on TF32 operands: every fp32 operand is split as hi =
 // tf32(a) (rounded), lo = a - hi (truncated to TF32 by the mma), and hi.hi
 // goes to one accumulator, hi.lo + lo.hi to another (summed small first at
@@ -301,6 +301,15 @@ __device__ __forceinline__ void hidden_out(const float (&acc)[ntw<COLW>()][4],
   }
 }
 
+// whether SPLIT3 can run at these widths: layer 3 one n-tile (dout <= 8)
+// and the partial sums, [P][2][32][4] words, within h1's buffer [16][sh1]
+__host__ __device__ constexpr bool split3_fits(int h1, int h2, int dout,
+                                               int colw) {
+  return dout <= 8 && h1 <= MAX_WIDTH && h2 <= MAX_WIDTH &&
+         (up(h2, 8) / 8 < colw ? up(h2, 8) / 8 : colw) * 2 * 32 * 4 <=
+             ROWS * (up(up(h1, 8), 32) + 8);
+}
+
 // Layer 3 of one n-tile (d_out <= 8) with its k-blocks split over the
 // group's warps: warp c < P = min(COLW, kblocks) takes blocks c, c + P, ...
 // (at most ntw<COLW>() of them: h2 <= 128).  w3_frags reads that warp's B
@@ -370,14 +379,12 @@ __device__ __forceinline__ void layer3_split(const float* a, int sa,
 
 // The kernel body: G groups of COLW warps a CTA, each group walking over
 // its own 16-row tiles of `rows` (Rows::BF16: x in bf16 pairs), W1 and W2
-// through the tensor maps, the rest from `w`.  SPLIT3 (d_out <= 8, h1 =
-// 128, h2 <= 64, so that the partial sums fit in h1's buffer): layer 3's
-// k-blocks split over the warps, W3 read into registers at entry instead
-// of shared memory.  EARLY: the tensor copies start before
-// the x copies.  The dynamic shared memory is Layout(din, h1, h2, dout,
+// through the tensor maps, the rest from `w`.  SPLIT3 (only where
+// split3_fits: the caller asserts it at its widths): layer 3's k-blocks
+// split over the warps, W3 read into registers at entry instead of shared
+// memory.  The dynamic shared memory is Layout(din, h1, h2, dout,
 // Rows::BF16, G).bytes().
-template <class Rows, int G, int COLW, bool SPLIT3 = false,
-          bool EARLY = false>
+template <class Rows, int G, int COLW, bool SPLIT3 = false>
 __device__ __forceinline__ void mlp_tiles(const Rows& rows, const Weights& w,
                                           int din, int h1, int h2, int dout,
                                           const CUtensorMap* w1map,
@@ -404,12 +411,11 @@ __device__ __forceinline__ void mlp_tiles(const Rows& rows, const Weights& w,
   int tile = blockIdx.x * G + grp;
 
   // 1. the weights: W1 and W2 by tensor copies (one mbarrier each), started
-  // by thread 0 before the x copies where EARLY, else after them; each
-  // group's first x tile; W3 (unless SPLIT3 reads its fragments into
-  // registers) and the biases by 4-byte copies (zero-padded), each thread's
-  // arriving on a third mbarrier when they land
-  auto start_weights = [&] {
-    if (tid != 0) return;
+  // by thread 0 first of all; each group's first x tile; W3 (unless SPLIT3
+  // reads its fragments into registers) and the biases by 4-byte copies
+  // (zero-padded), each thread's arriving on a third mbarrier when they
+  // land
+  if (tid == 0) {
     mbar_init(bars, 1);
     mbar_init(bars + 1, 1);
     mbar_init(bars + 2, GROUP * G);
@@ -418,13 +424,11 @@ __device__ __forceinline__ void mlp_tiles(const Rows& rows, const Weights& w,
     tensor_copy(sw1, w1map, bars);
     mbar_expect_tx(bars + 1, sizeof(float) * L.k2 * L.s2);
     tensor_copy(sw2, w2map, bars + 1);
-  };
-  if constexpr (EARLY) start_weights();
+  }
   float w3f[ntw<COLW>()][2];   // SPLIT3: this warp's fragments of W3
   if constexpr (SPLIT3) w3_frags<COLW>(w.w3, h2, dout, c, w3f);
   if (tile < tiles) rows.template copy<GROUP>(xs, tile, L, gt);
   cp_async_commit();
-  if constexpr (!EARLY) start_weights();
   __syncthreads();   // the mbarriers are initialised before any arrival
   const int dout8 = up(dout, 8);
   for (int i = tid; i < (SPLIT3 ? 0 : L.k3 * L.s3); i += GROUP * G) {

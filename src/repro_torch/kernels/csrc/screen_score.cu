@@ -20,15 +20,15 @@
 // fused_mlp's body (mlp_tf32.cuh: 3xTF32 mma.sync.m16n8k8, W1 and W2 by
 // tensor copies into shared memory, 16-row tiles), so B = 64, K = 4 is 16
 // tiles on 16 SMs, one CTA of one group each (two groups a CTA once the
-// tiles outnumber the SMs).  Three choices of that body that fused_mlp
-// does not take: the tensor copies start before anything else (EARLY: W1
-// has landed by the time x has); layer 3's 8 k-blocks are split over the
-// 8 warps and summed by warp 0, with each warp's W3 fragment read into
-// registers at entry instead of staging W3 (SPLIT3: a chain of 3 mma a
-// warp instead of 24 in one); and 8 warps a tile instead of 4 (two a
-// sub-core; 4 were slower, 16 no faster).  A tile's rows are
-// gathered as they load: b = row / K per row, since a tile may hold an
-// env's candidates in part (K does not divide 16), rows past B.K
+// tiles outnumber the SMs).  Two choices of that body that fused_mlp does
+// not take: layer 3's 8 k-blocks are split over the 8 warps and summed by
+// warp 0, with each warp's W3 fragment read into registers at entry
+// instead of staging W3 (SPLIT3: a chain of 3 mma a warp instead of 24 in
+// one; at fused_mlp's d_out = 52 layer 3 is 7 n-tiles, and at d_out = 3
+// the split would change its sums); and 8 warps a tile instead of 4 (two
+// a sub-core; 4 were slower, 16 no faster).  A tile's
+// rows are gathered as they load: b = row / K per row, since a tile may
+// hold an env's candidates in part (K does not divide 16), rows past B.K
 // zero-filled and never stored; s[b] in 16-byte and cand[b, k] in 8-byte
 // pieces where s and cand are 16- and 8-byte aligned (a row of s is 208
 // bytes, of cand 120), else in 4-byte ones; the env's weight row lands in
@@ -159,13 +159,16 @@ struct ScreenRows {
   }
 };
 
+static_assert(split3_fits(H1, H2, NT, COLW),
+              "SPLIT3's partial sums fit in h1's buffer");
+
 template <int G>
 __global__ void __launch_bounds__(GROUP * G, 1)
 screen_kernel(const ScreenRows rows, const Weights w,
               const __grid_constant__ CUtensorMap w1map,
               const __grid_constant__ CUtensorMap w2map) {
-  mlp_tiles<ScreenRows, G, COLW, true, true>(rows, w, IN, H1, H2, NT, &w1map,
-                                            &w2map);
+  mlp_tiles<ScreenRows, G, COLW, true>(rows, w, IN, H1, H2, NT, &w1map,
+                                       &w2map);
 }
 
 template <int G>

@@ -436,14 +436,17 @@ def _tf32_trunc(a):
     return (u & np.uint32(0xffffe000)).view(np.float32)
 
 
-def _emulate_3xtf32_matmul(a, w, a_exact=False, three=True):
+def _emulate_3xtf32_matmul(a, w, a_exact=False, three=True, split=False):
     """``a @ w`` as the kernel's tensor-core layers compute it: each fp32
     operand split as hi = tf32(x), lo = x - hi (truncated to TF32 by the
     mma); per block of 8 k the products hi.hi into one fp32 accumulator
     and hi.lo + lo.hi into another (lo.hi skipped when ``a`` is exact in
     TF32, as a bf16 x is), each product exact, each block's sum rounded to
     fp32 once; the two accumulators summed small first.  ``three=False``
-    is plain TF32 (hi.hi alone)."""
+    is plain TF32 (hi.hi alone).  ``split=True`` is ``mlp_tf32.cuh``'s
+    ``layer3_split`` with one k-block a warp: each block's hi.hi and small
+    products in accumulators of their own, rounded to fp32, then the
+    blocks' big parts and small parts each added in block order."""
     a, w = np.asarray(a, np.float32), np.asarray(w, np.float32)
     ah, wh = _tf32_round(a), _tf32_round(w)
     al, wl = _tf32_trunc(a - ah), _tf32_trunc(w - wh)
@@ -451,21 +454,25 @@ def _emulate_3xtf32_matmul(a, w, a_exact=False, three=True):
     small = np.zeros_like(big)
     for k0 in range(0, a.shape[1], 8):
         s = slice(k0, k0 + 8)
-        big = (big + ah[:, s].astype(np.float64)
-               @ wh[s].astype(np.float64)).astype(np.float32)
+        pb = ah[:, s].astype(np.float64) @ wh[s].astype(np.float64)
+        p = np.zeros_like(pb)
         if three:
             p = ah[:, s].astype(np.float64) @ wl[s].astype(np.float64)
             if not a_exact:
                 p += al[:, s].astype(np.float64) @ wh[s].astype(np.float64)
-            small = (small + p).astype(np.float32)
+        if split:
+            pb, p = pb.astype(np.float32), p.astype(np.float32)
+        big = (big + pb).astype(np.float32)
+        small = (small + p).astype(np.float32)
     return small + big
 
 
-def _emulate_fused_mlp(x, ws, bf16=False, three=True):
+def _emulate_fused_mlp(x, ws, bf16=False, three=True, split3=False):
     """numpy emulation of ``csrc/policy_mlp.cu``'s arithmetic: three
     3xTF32 layers, each dot product from 0 with its bias added last in
     fp32, tanh-GELU in fp32 between them; a bf16 x is exact in TF32 (its
-    lo part is 0)."""
+    lo part is 0).  ``split3``: layer 3's k-blocks summed as
+    ``screen_score.cu``'s ``SPLIT3`` sums them."""
     def gelu(v):
         v = v.astype(np.float32)
         return np.float32(0.5) * v * (np.float32(1) + np.tanh(
@@ -474,7 +481,7 @@ def _emulate_fused_mlp(x, ws, bf16=False, three=True):
     w1, b1, w2, b2, w3, b3 = ws
     h = gelu(_emulate_3xtf32_matmul(x, w1, a_exact=bf16, three=three) + b1)
     h = gelu(_emulate_3xtf32_matmul(h, w2, three=three) + b2)
-    return _emulate_3xtf32_matmul(h, w3, three=three) + b3
+    return _emulate_3xtf32_matmul(h, w3, three=three, split=split3) + b3
 
 
 @pytest.mark.parametrize("b,d_out", [(1, 3), (17, 3), (448, 3), (16, 52),
@@ -507,14 +514,17 @@ def test_fused_mlp_kernel_arithmetic_matches_reference(b, d_out, dtype):
 def _emulate_screen_score(params, s, cand, w, three=True):
     """numpy emulation of ``csrc/screen_score.cu``'s arithmetic: the rows
     [s[b] || cand[b, k]] through ``fused_mlp``'s 3xTF32 body
-    (``_emulate_fused_mlp``), then the score from layer 3's outputs in the
-    plain version's order, in fp32 without contraction."""
+    (``_emulate_fused_mlp``) with layer 3's 8 k-blocks one a warp, each in
+    accumulators of its own, and warp 0 adding the warps' big and small
+    parts in block order (``SPLIT3``), then the score from layer 3's
+    outputs in the plain version's order, in fp32 without contraction."""
     b, k = cand.shape[:2]
     x = np.concatenate([np.repeat(s[:, None], k, axis=1), cand],
                        axis=-1).reshape(b * k, -1)
     ws = [np.asarray(params[n][p], np.float32)
           for n in ("l1", "l2", "head") for p in ("w", "b")]
-    pred = _emulate_fused_mlp(x, ws, three=three).reshape(b, k, 3)
+    pred = _emulate_fused_mlp(x, ws, three=three,
+                              split3=True).reshape(b, k, 3)
     w = w[:, None].astype(np.float32)
     return ((w[..., 1] * pred[..., 0] + w[..., 2] * pred[..., 2])
             - w[..., 0] * pred[..., 1])
