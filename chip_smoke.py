@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the design-space search, campaigns and LM
+"""Drive the PyTorch/CUDA port (the design-space search, campaigns, scenario
+grids with SLO selection, the scalar engine and its baselines, and LM
 serving) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
@@ -11,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source
      (``-Xptxas -v`` shows registers, shared memory and spills);
   3. parity on the card: each kernel against its plain PyTorch version at
-     the main path's shapes and a ragged batch (rtol 1e-4, atol 1e-5), the
+     the main path's shapes and a ragged batch (rtol 1e-4, atol 1e-5; the
+     actor also at B = 1, the scalar engine's act path), the
      actor also with heads, biases and gate set so that both log_std clips,
      the saturated tanh and a peaked gate are reached; ``fused_mlp`` at
      [448]->3, [4096]->52, [28672]->52 and ragged B, also with bf16 input
@@ -27,8 +29,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      ``flash_attention`` over the reference's sweep, ragged lengths, the
      tensor-core kernel's edges (hd 40 and 80, 1,000 keys, causal with
      Sq != Sk, a window with Sq > Sk, unaligned views) and the LM prefill
-     shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2), and
-     sequence 2,048 in fp32;
+     shape, each in fp32, fp16 and bf16 (fp32 2e-5, fp16/bf16 2e-2),
+     sequence 2,048 in fp32, and Mixtral's prefill of 4,608 tokens under its
+     4,096-token window (q [1,32,4608,128], causal) in all three;
      ``ssm_scan`` at Jamba's
      prefill shape, ragged ones and S = 2,048 (rtol/atol 1e-4 on y and the
      final state);
@@ -43,8 +46,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      for ``ssm_scan`` the exponentials at the
      special-function rate of the card's SMs at their maximum clock), and
      for ``flash_attention`` (the LM prefill
-     shape in fp16, bf16 and fp32, and sequence 2048 in fp16 and fp32)
-     PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+     shape in fp16, bf16 and fp32, sequence 2048 in fp16 and fp32, and the
+     Mixtral window shape in bf16 and fp32 with the window as a boolean
+     mask) PyTorch's ``scaled_dot_product_attention`` on the same inputs;
      ``actor_moe`` at B = 64, 192 and 448, ``sumtree`` at random N = 64,
      256, 448 and at the inserts' contiguous 64 and 448 leaves with a
      scalar, ``sumtree_sample`` at N = 256 and 448; and
@@ -72,12 +76,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (prefill, then greedy decode with a tail flush every 64 steps) on
      ``cuda`` for ``LM_RUNS``: Llama 3.1 8B whole (fp16), Jamba v0.1 at full
      width and one period of depth (8 layers, bf16), and both at full width
-     in float32 (Llama 2 layers, Jamba 8 layers); the launch counts read
-     around each run; the same weights again with the two kernels' plain
-     versions put in their place: prefill logits within ``tol`` of max
-     |logit| (the bf16 Jamba's gap printed only), and the same greedy
-     tokens for the float32 runs;
-  9. one JSON line per kernel, then the result line.
+     in float32 (Llama 2 layers, Jamba 8 layers); Mixtral 8x7B at full
+     width, batch 1, a 4,608-token prompt (longer than its window, so the
+     prefill masks keys and the decode ring wraps), 8 layers in bf16 and 4
+     in float32; the launch counts read around each run; the same weights
+     again with the two kernels' plain versions put in their place: prefill
+     logits within ``tol`` of max |logit| (the bf16 Jamba's and Mixtral's
+     gaps printed only), and the same greedy tokens for the float32 runs;
+  9. the scenario path: ``SCEN_GRID`` (Mixtral 8x7B at full width, nodes 3,
+     7 and 28, both modes, dtypes native and fp8, phases decode and
+     prefill, the default SLOs: 24 cells in 8 batches of 3 x 64 lanes,
+     4,613 episodes) through ``python -m repro_torch.launch.dse
+     --campaign`` with the launch counts read around it; where a cell found
+     designs, its pick, ``ttft_ms`` and ``slo_ok`` recomputed on the CPU
+     from its stored frontier by the plain evaluator; the same grid at 512
+     episodes with and without the SLO gives bitwise-equal frontiers; and
+     ``SLO_GRID`` (Llama 3.1 8B, high-performance, 2,048 episodes: 12
+     cells in 4 batches, which find designs) held the same way, with and
+     without the SLO;
+ 10. the scalar engine and the baselines on ``cuda`` through
+     ``repro_torch.launch.dse.run`` (Llama 3.1 8B decode, node 3,
+     high-performance): ``--engine scalar`` SAC for ``SCALAR_EPISODES``
+     episodes (run twice: identical), ``--method random`` and ``grid`` for
+     4,613; the chosen designs re-evaluated on the CPU, and the random and
+     grid baselines' designs equal to a CPU run's;
+ 11. one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -134,6 +157,23 @@ KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
 SUMTREE_CAP = 100_000
 SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
                   "fused_mlp")
+# the scenario grid: the paper's prefill/decode x dtype axes for Mixtral 8x7B
+# at full width with SLO-aware selection (the default SLOs, set in main());
+# 3 cells a batch, so 8 batches of 3 x 64 lanes
+SCEN_GRID = dict(name="scenario-grid", workloads=["mixtral-8x7b"],
+                 nodes=[3, 7, 28], modes=["high_perf", "low_power"],
+                 dtypes=["native", "fp8"], phases=["decode", "prefill"],
+                 episodes=4613, lanes=64, max_envs=192, seed=0, seq_len=2048,
+                 batch=3, checkpoint_every=8)
+# Mixtral's 93.4 GB of weights (46.7 GB in fp8) fit almost no design of the
+# space (2 of 20,000 random designs feasible, all fp8 decode at 3 nm), so
+# its cells' frontiers stay empty and the SLO pick is held on this grid too,
+# whose cells find designs
+SLO_GRID = dict(SCEN_GRID, name="slo-grid", workloads=["llama3.1-8b"],
+                modes=["high_perf"], episodes=2048)
+# the scalar loop synchronises with the host every env-step, so its SAC run
+# is cut from the paper's 4,613 episodes; the baselines run the full budget
+SCALAR_EPISODES = 1024
 # LM serving: (label, arch, config changes, batch, prompt, generated tokens,
 # logits tolerance as a share of max |logit|, or None for a printed
 # reading).  Llama 3.1 8B fits whole (16 GB in fp16); Jamba's 32 layers
@@ -143,13 +183,18 @@ SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
 # gap between the two paths is printed, not held: bf16 keeps 3 bits fewer
 # than fp16, and no bound was set for it between a sound reading and a
 # faulty one.  Jamba's kernels are held by the float32 run d at 1e-4 with
-# identical tokens, as Llama's are by run c.
+# identical tokens, as Llama's are by run c.  Mixtral's 32 layers (93 GB in
+# bf16) do not fit either: run e keeps 8 (23.7 GB), run f 4 in float32
+# (24 GB); their 4,608-token prompt outruns the 4,096-token window.
 LM_RUNS = (
     ("a", "llama3.1-8b", {}, 4, 512, 128, 2e-2),
     ("b", "jamba-v0.1-52b", dict(n_layers=8), 4, 512, 128, None),
     ("c", "llama3.1-8b", dict(n_layers=2, param_dtype="float32"), 4, 512,
      32, 1e-4),
     ("d", "jamba-v0.1-52b", dict(n_layers=8, param_dtype="float32"), 4, 512,
+     32, 1e-4),
+    ("e", "mixtral-8x7b", dict(n_layers=8), 1, 4608, 128, None),
+    ("f", "mixtral-8x7b", dict(n_layers=4, param_dtype="float32"), 1, 4608,
      32, 1e-4),
 )
 # the LM kernels' parity cases: (B, H, Hk, Sq, Sk, hd, causal, window) from
@@ -174,6 +219,7 @@ ATTN_CASES = [(1, 4, 2, 256, 256, 64, True, 0),
               (1, 4, 2, 200, 100, 80, True, 70)]
 ATTN_LM = (4, 32, 8, 512, 512, 128, True, 0)
 ATTN_2048 = (1, 32, 8, 2048, 2048, 128, True, 0)   # the paper's seq_len
+ATTN_WINDOW = (1, 32, 8, 4608, 4608, 128, True, 4096)   # Mixtral, runs e/f
 ATTN_TOL = {torch.float32: 2e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
 SSM_CASES = [(4, 512, 8192, 16), (2, 33, 200, 16), (3, 1, 8, 5),
              (1, 200, 40, 8), (2, 17, 130, 13), (1, 2048, 1024, 16)]
@@ -370,12 +416,13 @@ def main() -> None:
     from repro_torch import device as device_mod
     from repro_torch.campaign import CampaignStore, runner
     from repro_torch.configs import get_config
-    from repro_torch.core import mpc, replay, sac
+    from repro_torch.core import mpc, replay, reward, sac
     from repro_torch.core import world_model as wm
     from repro_torch.core.networks import to_device
     from repro_torch.core.env import VecDSEEnv
     from repro_torch.core import search as search_mod
-    from repro_torch.core.search import (SearchConfig, run_search,
+    from repro_torch.core.search import (SearchConfig, run_grid, run_random,
+                                         run_sac, run_search,
                                          run_search_cells)
     from repro_torch.kernels import (actor_moe, build, flash_attention, ops,
                                      policy_mlp, screen_score, ssm_scan,
@@ -447,7 +494,7 @@ def main() -> None:
     hot["mu"]["b"][:, col == 0] = -4.0
     hot["mu"]["b"][:, col == 2] = 4.0
     for label, params in (("init", actor), ("hot", hot)):
-        for b in (33, 64, 192, 448):
+        for b in (1, 33, 64, 192, 448):
             s = torch.randn((b, 52), generator=gen, device=dev)
             got = actor_moe.actor_forward_cuda(params, s)
             torch.cuda.synchronize()
@@ -474,9 +521,12 @@ def main() -> None:
                 gate_top=float(gate.max(-1).values.mean()))
             log(f"parity actor_moe {label} B={b} inputs: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
-            if label == "hot" and min(shares["log_std_at_min"],
-                                       shares["log_std_at_max"],
-                                       shares["tanh_saturated"]) == 0.0:
+            # (one row at B = 1 cannot reach every region; the batches
+            # around it do)
+            if label == "hot" and b > 1 and min(shares["log_std_at_min"],
+                                                shares["log_std_at_max"],
+                                                shares["tanh_saturated"]) \
+                    == 0.0:
                 fail(f"actor_moe hot B={b}: the inputs miss a clip or "
                      "the tanh's saturated region")
     for b, k in ((33, 4), (64, 4), (448, 4)):
@@ -670,6 +720,8 @@ def main() -> None:
     cases += [((2, 8, 2, 150, 150, 64, True, 0), dt, True)
               for dt in (torch.float32, torch.float16, torch.bfloat16)]
     cases += [(ATTN_2048, torch.float32, False)]
+    cases += [(ATTN_WINDOW, dt, False)
+              for dt in (torch.float32, torch.float16, torch.bfloat16)]
     for (B, H, Hk, Sq, Sk, hd, causal, window), dt, unaligned in cases:
         pad = int(unaligned)
         q, k, v = (torch.randn((B, n, S, hd + 2 * pad), generator=gen,
@@ -816,6 +868,28 @@ def main() -> None:
               attention_work(*shape, q.element_size()),
               unit="tf32x3" if dt == torch.float32 else "half",
               library=lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    # the Mixtral window (runs e and f): the library call takes the causal
+    # window as a boolean mask (True = attend)
+    B, H, Hk, Sq, Sk, hd, causal, window = ATTN_WINDOW
+    pos = torch.arange(Sq, device=dev)
+    win_mask = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - window)
+    for dt, label in ((torch.bfloat16, "e"), (torch.float32, "f")):
+        q = torch.randn((B, H, Sq, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hk, Sk, hd), generator=gen, device=dev).to(dt)
+        timed(("flash_attention", label),
+              f"q [{B},{H},{Sq},{hd}] k/v [{B},{Hk},{Sk},{hd}] {str(dt)[6:]} "
+              f"causal window {window}",
+              lambda: flash_attention.flash_attention_cuda(
+                  q, k, v, window=window),
+              lambda: flash_attention.flash_attention_plain(
+                  q, k, v, window=window),
+              attention_work(*ATTN_WINDOW, q.element_size()),
+              unit="tf32x3" if dt == torch.float32 else "half",
+              plain_calls=2,
+              library=lambda: sdpa(q, k, v, attn_mask=win_mask,
+                                   enable_gqa=True))
     # ssm_scan at Jamba's prefill shape; the plain version is a loop of S
     # steps (7 ops each), so its graph holds 2 calls and 10 are timed eager
     B, S, D, N = SSM_CASES[0]
@@ -933,36 +1007,94 @@ def main() -> None:
         n_envs=N_ENVS, device="cuda"))
 
     # ---- 6. the campaign path ---------------------------------------------
-    # the paper's grid through the port's CLI; run_batch is wrapped to keep
-    # each batch's SearchResults (dispatch times, MPC count, best designs)
+    # the paper's grid through the port's CLI
     import shutil
     shutil.rmtree(CAMPAIGN_ROOT, ignore_errors=True)
     os.makedirs(CAMPAIGN_ROOT)
-    batch_results = {}
-    real_run_batch = runner.run_batch
 
-    def recording_run_batch(store, batch, workload, spec, device="cuda"):
+    def drive_campaign(grid, json_name):
+        """Run ``grid`` through the port's CLI under CAMPAIGN_ROOT, with
+        run_batch wrapped to keep each batch's SearchResults (dispatch
+        times, MPC count, best designs) and the launch counts set to 0 just
+        before and read just after; returns (store, {batch_id: (batch,
+        wall, results)}, wall, counts)."""
+        batch_results = {}
+        real_run_batch = runner.run_batch
+
+        def recording_run_batch(store, batch, workload, spec, device="cuda"):
+            t = time.time()
+            res = real_run_batch(store, batch, workload, spec, device=device)
+            torch.cuda.synchronize()
+            batch_results[batch.batch_id] = (batch, time.time() - t, res)
+            return res
+
+        grid_path = os.path.join(CAMPAIGN_ROOT, json_name)
+        with open(grid_path, "w") as f:
+            json.dump(grid, f)
+        runner.run_batch = recording_run_batch
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
         t = time.time()
-        res = real_run_batch(store, batch, workload, spec, device=device)
-        torch.cuda.synchronize()
-        batch_results[batch.batch_id] = (batch, time.time() - t, res)
-        return res
+        try:
+            dse.main(["--campaign", grid_path, "--campaign-root",
+                      CAMPAIGN_ROOT, "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            runner.run_batch = real_run_batch
+        wall, counts = time.time() - t, ops.launch_counts()
+        store = CampaignStore.open(os.path.join(CAMPAIGN_ROOT, grid["name"]))
+        return store, batch_results, wall, counts
 
-    grid_path = os.path.join(CAMPAIGN_ROOT, "paper_grid.json")
-    with open(grid_path, "w") as f:
-        json.dump(GRID, f)
-    runner.run_batch = recording_run_batch
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t = time.time()
-    try:
-        dse.main(["--campaign", grid_path, "--campaign-root", CAMPAIGN_ROOT,
-                  "--device", "cuda"])
-        torch.cuda.synchronize()
-    finally:
-        runner.run_batch = real_run_batch
-    camp_wall, camp_counts = time.time() - t, ops.launch_counts()
-    store = CampaignStore.open(os.path.join(CAMPAIGN_ROOT, GRID["name"]))
+    def check_cells(label, store, batch_results, grid):
+        """Log each batch and cell; each cell's best design must be its
+        stored summary's and agree, re-evaluated on the CPU by the plain
+        evaluator on the cell's own workload, and be feasible.  Returns
+        the dispatch times of the grid."""
+        grid_disp = []
+        for batch_id, (batch, wall_b, res) in sorted(batch_results.items()):
+            disp = np.asarray(res[0].dispatch_s)
+            grid_disp.extend(disp.tolist())
+            log(f"{label} {batch_id}: wall {wall_b:.3f} s, {len(disp)} "
+                f"dispatches of {len(batch.node_nms) * grid['lanes']} envs, "
+                f"median dispatch {1e3 * float(np.median(disp)):.3f} ms, "
+                f"first {1e3 * float(disp[0]):.3f} ms, MPC dispatches "
+                f"{res[0].mpc_dispatches}")
+            hp = batch.mode == "high_perf"
+            wl_b = extract(get_config(batch.arch), seq_len=grid["seq_len"],
+                           batch=grid["batch"], phase=batch.phase,
+                           dtype=batch.dtype)
+            for cell, r in zip(batch.cells, res):
+                summ = store.load_summary(cell.cell_id)
+                log(f"{label}   {cell.cell_id}: ppa_score "
+                    f"{summ['ppa_score']} frontier {summ['frontier']} gate "
+                    f"open at {summ['gate_open_episode']} screened "
+                    f"{summ['screened']} evaluated {summ['evaluated']}"
+                    + (f" ttft_ms {summ['ttft_ms']} slo_ok {summ['slo_ok']}"
+                       if "ttft_ms" in summ else ""))
+                if r.best_cfg is None:
+                    continue
+                if summ["ppa_score"] != float(r.best_metrics[
+                        an.M_IDX["ppa_score"]]):
+                    fail(f"{cell.cell_id}: stored summary disagrees with "
+                         "the search result")
+                with torch.no_grad():
+                    cpu_m = an.evaluate(
+                        cs.project(torch.as_tensor(
+                            np.asarray(r.best_cfg, np.float32))),
+                        torch.as_tensor(np.asarray(wl_b.features,
+                                                   np.float32)),
+                        torch.as_tensor(an.node_vector(
+                            node_params(cell.node_nm, low_power=not hp),
+                            high_perf=hp))).numpy()
+                if not np.allclose(r.best_metrics[keep], cpu_m[keep],
+                                   rtol=1e-5, atol=1e-6) \
+                        or cpu_m[an.M_IDX["feasible"]] != 1:
+                    fail(f"{cell.cell_id}: the best design's card metrics "
+                         "disagree with the plain CPU evaluator")
+        return grid_disp
+
+    store, batch_results, camp_wall, camp_counts = drive_campaign(
+        GRID, "paper_grid.json")
     if not store.all_done() or len(store.summaries()) != 28 \
             or len(batch_results) != 4:
         fail(f"campaign: {len(store.summaries())} of 28 cells done in "
@@ -972,42 +1104,7 @@ def main() -> None:
     for name in ("sumtree", "sumtree_sample", "fused_mlp"):
         if camp_counts[name] <= 0:
             fail(f"kernel {name} was never launched on the campaign path")
-    camp_disp = []
-    for batch_id, (batch, wall_b, res) in sorted(batch_results.items()):
-        disp = np.asarray(res[0].dispatch_s)
-        camp_disp.extend(disp.tolist())
-        log(f"campaign {batch_id}: wall {wall_b:.3f} s, {len(disp)} "
-            f"dispatches of {len(batch.node_nms) * GRID['lanes']} envs, "
-            f"median dispatch {1e3 * float(np.median(disp)):.3f} ms, first "
-            f"{1e3 * float(disp[0]):.3f} ms, MPC dispatches "
-            f"{res[0].mpc_dispatches}")
-        hp = batch.mode == "high_perf"
-        wl_b = extract(get_config(batch.arch), seq_len=GRID["seq_len"],
-                       batch=GRID["batch"])
-        for cell, r in zip(batch.cells, res):
-            summ = store.load_summary(cell.cell_id)
-            log(f"campaign   {cell.cell_id}: ppa_score "
-                f"{summ['ppa_score']} frontier {summ['frontier']} gate "
-                f"open at {summ['gate_open_episode']} screened "
-                f"{summ['screened']} evaluated {summ['evaluated']}")
-            if r.best_cfg is None:
-                continue
-            if summ["ppa_score"] != float(r.best_metrics[
-                    an.M_IDX["ppa_score"]]):
-                fail(f"{cell.cell_id}: stored summary disagrees with the "
-                     "search result")
-            with torch.no_grad():
-                cpu_m = an.evaluate(
-                    cs.project(torch.as_tensor(
-                        np.asarray(r.best_cfg, np.float32))),
-                    torch.as_tensor(np.asarray(wl_b.features, np.float32)),
-                    torch.as_tensor(an.node_vector(
-                        node_params(cell.node_nm, low_power=not hp),
-                        high_perf=hp))).numpy()
-            if not np.allclose(r.best_metrics[keep], cpu_m[keep], rtol=1e-5,
-                               atol=1e-6) or cpu_m[an.M_IDX["feasible"]] != 1:
-                fail(f"{cell.cell_id}: the best design's card metrics "
-                     "disagree with the plain CPU evaluator")
+    camp_disp = check_cells("campaign", store, batch_results, GRID)
     n_best = sum(r.best_cfg is not None for _, _, res in
                  batch_results.values() for r in res)
     log(f"campaign check: {n_best} of 28 cells found a feasible design; "
@@ -1213,12 +1310,184 @@ def main() -> None:
         if lm_counts[name] <= 0:
             fail(f"kernel {name} was never launched on the LM path")
 
-    # ---- 9. results -------------------------------------------------------
+    # ---- 9. the scenario path ----------------------------------------------
+    def hold_slo_picks(label, store, batch_results, grid):
+        """Where a cell found designs, its SLO pick, ``ttft_ms`` and
+        ``slo_ok`` recomputed on the CPU from its stored frontier: each
+        entry re-evaluated under the prefill workload by the plain
+        evaluator, the pick the argmin of ``slo_objective`` (rtol 1e-5 for
+        ties), TTFT at rtol 1e-5 and the verdict equal.  Returns how many
+        cells had a pick."""
+        picked = 0
+        for batch, _, res in batch_results.values():
+            hp = batch.mode == "high_perf"
+            slo = reward.resolve_slo(grid["slo"], batch.mode)
+            aux = extract(get_config(batch.arch), seq_len=grid["seq_len"],
+                          batch=grid["batch"], phase="prefill",
+                          dtype=batch.dtype)
+            wl_b = extract(get_config(batch.arch), seq_len=grid["seq_len"],
+                           batch=grid["batch"], phase=batch.phase,
+                           dtype=batch.dtype)
+            for cell, r in zip(batch.cells, res):
+                summ = store.load_summary(cell.cell_id)
+                ents = store.load_archive(cell.cell_id).entries
+                if not ents:
+                    if "ttft_ms" in summ or r.best_cfg is not None:
+                        fail(f"{cell.cell_id}: an SLO pick without designs")
+                    continue
+                node = torch.as_tensor(an.node_vector(
+                    node_params(cell.node_nm, low_power=not hp),
+                    high_perf=hp))
+                with torch.no_grad():
+                    cfgs = cs.project(torch.as_tensor(
+                        np.stack([e.cfg for e in ents]).astype(np.float32)))
+                    pre = an.evaluate(cfgs, torch.as_tensor(aux.features),
+                                      node).numpy()
+                    own = an.evaluate(cfgs, torch.as_tensor(wl_b.features),
+                                      node).numpy()
+                ttfts = [reward.ttft_ms(p_[an.M_IDX["tok_s"]],
+                                        grid["seq_len"], grid["batch"])
+                         for p_ in pre]
+                objs = np.asarray([reward.slo_objective(
+                    e.ppa_score, e.tok_s, t_, slo)
+                    for e, t_ in zip(ents, ttfts)])
+                at = [i for i, e in enumerate(ents)
+                      if np.array_equal(e.cfg, r.best_cfg)]
+                if not at or objs[at[0]] > objs.min() * (1 + 1e-5) + 1e-9:
+                    fail(f"{cell.cell_id}: the pick is not the argmin of "
+                         "slo_objective over the stored frontier")
+                i = at[0]
+                ok = bool(own[i, an.M_IDX["tok_s"]] >= slo["tok_s"]
+                          and ttfts[i] <= slo["ttft_ms"])
+                if not np.isclose(summ["ttft_ms"], ttfts[i], rtol=1e-5,
+                                  atol=0) or summ["slo_ok"] != ok:
+                    fail(f"{cell.cell_id}: ttft_ms {summ['ttft_ms']} / "
+                         f"slo_ok {summ['slo_ok']} differ from the CPU's "
+                         f"{ttfts[i]} / {ok}")
+                picked += 1
+        log(f"{label} check: {picked} cells with an SLO pick; each pick "
+            "the argmin of slo_objective over its stored frontier, its "
+            "ttft_ms (rtol 1e-5) and slo_ok recomputed on the CPU")
+        return picked
+
+    def same_frontiers(label, a, b):
+        """Every cell's frontier of store ``a`` bitwise that of ``b``."""
+        sizes = []
+        for cid in a.manifest["cells"]:
+            fa, fb = (st_.load_archive(cid).frontier() for st_ in (a, b))
+            if fa.keys() != fb.keys() or not all(
+                    np.array_equal(fa[k], fb[k]) for k in fa):
+                fail(f"{label}: {cid}'s frontier moved with the SLO")
+            sizes.append(len(a.load_archive(cid)))
+        log(f"{label}: frontiers with and without the SLO bitwise equal "
+            f"over {len(sizes)} cells (sizes {sizes})")
+
+    scen = dict(SCEN_GRID, slo=reward.DEFAULT_SLOS)
+    scen_store, scen_batches, scen_wall, scen_counts = drive_campaign(
+        scen, "scenario_grid.json")
+    if not scen_store.all_done() or len(scen_store.summaries()) != 24 \
+            or len(scen_batches) != 8:
+        fail(f"scenario grid: {len(scen_store.summaries())} of 24 cells "
+             f"done in {len(scen_batches)} batches")
+    log(f"scenario grid: 24 cells in 8 batches, wall {scen_wall:.3f} s; "
+        f"launches {json.dumps(scen_counts)}")
+    for name in ("actor_moe", "sumtree", "sumtree_sample", "fused_mlp"):
+        if scen_counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the scenario path")
+    scen_disp = check_cells("scenario", scen_store, scen_batches, scen)
+    log(f"scenario grid: median dispatch "
+        f"{1e3 * float(np.median(scen_disp)):.3f} ms over "
+        f"{len(scen_disp)} dispatches")
+    hold_slo_picks("scenario grid", scen_store, scen_batches, scen)
+    short = [drive_campaign(dict(scen, name=f"scenario-512-{tag}",
+                                 episodes=512, slo=slo_), f"s512{tag}.json")[0]
+             for tag, slo_ in (("slo", scen["slo"]), ("none", None))]
+    same_frontiers("scenario grid at 512 episodes", *short)
+    # the SLO pick where cells find designs: Llama 3.1 8B's axes, with and
+    # without the SLO
+    held = dict(SLO_GRID, slo=reward.DEFAULT_SLOS)
+    held_store, held_batches, held_wall, held_counts = drive_campaign(
+        held, "slo_grid.json")
+    log(f"slo grid: {len(held_store.summaries())} cells in "
+        f"{len(held_batches)} batches, wall {held_wall:.3f} s; launches "
+        f"{json.dumps(held_counts)}")
+    check_cells("slo grid", held_store, held_batches, held)
+    if hold_slo_picks("slo grid", held_store, held_batches, held) == 0:
+        fail("slo grid: no cell found a design, so no SLO pick was held")
+    plain_store = drive_campaign(dict(held, name="slo-grid-none", slo=None),
+                                 "slo_grid_none.json")[0]
+    same_frontiers("slo grid", held_store, plain_store)
+
+    # ---- 10. the scalar engine and the baselines ---------------------------
+    # through dse.run, as the CLI's --engine scalar and --method random|grid
+    # drive them; the launch counts set to 0 before and read after each
+    scalar = {}
+    for method, episodes in (("sac", SCALAR_EPISODES), ("random", EPISODES),
+                             ("grid", EPISODES)):
+        res_l = []
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        row, = dse.run("llama3.1-8b", nodes=[NODE], mode="high-performance",
+                       episodes=episodes, method=method,
+                       out_dir=os.path.join(OUT, "scalar"), seed=SEED,
+                       seq_len=2048, batch=3, engine="scalar",
+                       device="cuda", results=res_l)
+        torch.cuda.synchronize()
+        wall_s, counts_s, r = time.time() - t, ops.launch_counts(), res_l[0]
+        scalar[method] = (wall_s, counts_s, r)
+        loop = sum(r.dispatch_s) if r.dispatch_s else wall_s
+        log(f"scalar {method}: {r.episodes_run} env-steps in {wall_s:.3f} s "
+            f"({r.episodes_run / loop:.1f} env-steps/s over the loop, "
+            f"{r.episodes_run / wall_s:.1f} over the wall), feasible "
+            f"{r.feasible_count}, frontier {len(r.archive)}, MPC steps "
+            f"{r.mpc_dispatches}; mesh {row['mesh']} ppa_score "
+            f"{row['ppa_score']:.6f}; launches {json.dumps(counts_s)}")
+        if r.best_cfg is None:
+            fail(f"scalar {method}: no feasible design found")
+        with torch.no_grad():
+            cpu_m = an.evaluate(
+                cs.project(torch.as_tensor(np.asarray(r.best_cfg,
+                                                      np.float32))),
+                torch.as_tensor(np.asarray(wl.features, np.float32)),
+                torch.as_tensor(an.node_vector(node_params(NODE)))).numpy()
+        if not np.allclose(r.best_metrics[keep], cpu_m[keep], rtol=1e-5,
+                           atol=1e-6) or cpu_m[an.M_IDX["feasible"]] != 1:
+            fail(f"scalar {method}: the chosen design's card metrics "
+                 "disagree with the plain CPU evaluator")
+    for name in ("actor_moe", "sumtree", "sumtree_sample"):
+        if scalar["sac"][1][name] <= 0:
+            fail(f"kernel {name} was never launched on the scalar path")
+
+    def fingerprint(r):
+        return json.dumps(dict(
+            archive=[e.to_dict() for e in r.archive.entries],
+            trace=[t_.__dict__ for t_ in r.trace],
+            best=None if r.best_cfg is None else r.best_cfg.tolist()))
+    again = run_sac(wl, NODE, search=SearchConfig(episodes=SCALAR_EPISODES,
+                                                  seed=SEED), device="cuda")
+    if fingerprint(again) != fingerprint(scalar["sac"][2]):
+        fail("scalar sac: two same-seed runs on the card differ")
+    for method, fn in (("random", run_random), ("grid", run_grid)):
+        cpu_r = fn(wl, NODE, episodes=EPISODES, seed=SEED, device="cpu")
+        card_r = scalar[method][2]
+        if (len(cpu_r.archive) != len(card_r.archive)
+                or cpu_r.feasible_count != card_r.feasible_count
+                or not np.array_equal(cpu_r.best_cfg, card_r.best_cfg)
+                or not all(np.array_equal(a_.cfg, b_.cfg) for a_, b_ in zip(
+                    cpu_r.archive.entries, card_r.archive.entries))):
+            fail(f"scalar {method}: the card's designs differ from a CPU "
+                 "run's")
+    log("scalar check: same-seed SAC runs identical; each chosen design "
+        "re-evaluated on the CPU agrees (rtol 1e-5); random and grid "
+        "baselines' frontiers and picks equal a CPU run's")
+
+    # ---- 11. results ------------------------------------------------------
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
     # batch's (B = 448; 256 samples per SAC update) with the campaign's;
     # flash_attention at LM run a's shape and ssm_scan at run b's, with the
-    # LM phase's launches (runs a-d)
+    # LM phase's launches (runs a-f); each path's own counts beside them
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, replaces, key, shape, path_counts in (
@@ -1244,7 +1513,11 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces,
             shape=shape, launches=path_counts[name], max_abs_err=errs[name],
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            bound_term=term, library_ms=library_ms, call_ms=call))
+            bound_term=term, library_ms=library_ms, call_ms=call,
+            launches_by_path={path: c.get(name, 0) for path, c in (
+                ("single", counts), ("campaign", camp_counts),
+                ("scenario", scen_counts), ("scalar", scalar["sac"][1]),
+                ("lm", lm_counts))}))
     print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,11 @@ a batch shares one env step and one SAC policy / PER buffer (see
 ``repro_torch.core.search.run_search_cells``).
 
 The spec keeps every field of the reference's, so either package reads the
-other's manifests.  Validation runs against the port's ``ARCH_IDS``, and a
-spec that asks for what is not ported yet (``transfer_from``, ``devices``,
-``hosts``, ``slo``, ``priorities``, or dtypes/phases other than the
-default scenario) is refused with an error naming it.
+other's manifests.  Scenario axes (``dtypes``, ``phases``) multiply the
+grid, with the default scenario's batches first; ``slo`` turns on
+SLO-aware selection.  A spec that asks for what is not ported yet
+(``transfer_from``, ``devices``, ``hosts``, ``priorities``) is refused with
+an error naming it.
 """
 from __future__ import annotations
 
@@ -94,7 +95,6 @@ _NOT_PORTED = {
     "devices": "sharding over several cards",
     "transfer_from": "cross-campaign transfer (campaign/transfer)",
     "priorities": "cost-model batch priorities (campaign/transfer)",
-    "slo": "SLO-aware scenario selection",
 }
 
 
@@ -128,6 +128,10 @@ class CampaignSpec:
         default_factory=lambda: [DEFAULT_DTYPE])
     phases: List[str] = dataclasses.field(
         default_factory=lambda: [DEFAULT_PHASE])
+    # serving SLO targets: None disables SLO-aware selection; a flat
+    # {"ttft_ms": .., "tok_s": ..} applies to every mode; a per-mode
+    # {"high_perf": {...}, "low_power": {...}} overrides per mode
+    # (missing keys fall back to repro_torch.core.reward.DEFAULT_SLOS).
     slo: Optional[Dict] = None
 
     def __post_init__(self) -> None:
@@ -159,15 +163,29 @@ class CampaignSpec:
         if bad_ph or not self.phases:
             raise ValueError(f"unknown phases {bad_ph or self.phases}; "
                              f"known: {list(PHASES)}")
+        if self.slo is not None:
+            if not isinstance(self.slo, dict) or not self.slo:
+                raise ValueError(f"slo must be a non-empty dict "
+                                 f"(got {self.slo!r})")
+            per_mode = all(isinstance(v, dict) for v in self.slo.values())
+            groups = self.slo.values() if per_mode else [self.slo]
+            if per_mode:
+                bad = sorted(set(self.slo) - set(MODES))
+                if bad:
+                    raise ValueError(f"per-mode slo keys {bad} unknown; "
+                                     f"modes: {list(MODES)}")
+            for g in groups:
+                bad = sorted(set(g) - {"ttft_ms", "tok_s"})
+                if bad or any(not isinstance(v, (int, float))
+                              or isinstance(v, bool) or v <= 0
+                              for v in g.values()):
+                    raise ValueError(
+                        f"slo targets must be positive numbers keyed "
+                        f"'ttft_ms'/'tok_s' (got {g!r})")
         for name, part in _NOT_PORTED.items():
             if getattr(self, name) is not None:
                 raise ValueError(f"{name}: {part} is not ported to "
                                  "repro_torch yet")
-        if self.dtypes != [DEFAULT_DTYPE] or self.phases != [DEFAULT_PHASE]:
-            raise ValueError(
-                f"dtypes {self.dtypes} / phases {self.phases}: scenario "
-                "grids are not ported to repro_torch yet (only "
-                f"[{DEFAULT_DTYPE!r}] / [{DEFAULT_PHASE!r}])")
 
     @property
     def n_cells(self) -> int:
@@ -222,7 +240,8 @@ class CampaignSpec:
 
 def cells(spec: CampaignSpec) -> List[Cell]:
     """Expand the grid: workloads (outer) x dtypes x phases x modes x
-    nodes (inner)."""
+    nodes (inner).  With the default single-point scenario axes this is
+    exactly the expansion without them."""
     return [Cell(w, n, m, dt, ph)
             for w in spec.workloads for dt in spec.dtypes
             for ph in spec.phases for m in spec.modes for n in spec.nodes]
@@ -234,7 +253,9 @@ def plan(spec: CampaignSpec) -> List[CellBatch]:
     Grouping key is (workload, dtype, phase, mode) — those fix the env's
     workload vector and reward weights — and the node list is chunked so
     that ``len(chunk) * lanes <= max_envs``.  Batch ``index`` (and with it
-    the per-batch seed ``spec.seed + 1000 * index``) follows spec order.
+    the per-batch seed ``spec.seed + 1000 * index``) follows spec order, so
+    with the default dtype and phase listed first the default scenario's
+    batches come first and keep the seeds of a grid without scenario axes.
     """
     per_batch = max(1, spec.max_envs // spec.lanes)
     out: List[CellBatch] = []

@@ -25,6 +25,7 @@ from repro_torch.campaign.planner import (DEFAULT_DTYPE, DEFAULT_PHASE,
 from repro_torch.campaign.report import write_reports
 from repro_torch.campaign.store import CampaignStore
 from repro_torch.configs import get_config
+from repro_torch.core.reward import resolve_slo
 from repro_torch.core.search import (SearchConfig, SearchResult,
                                      run_search_cells)
 from repro_torch.ppa import config_space as cs
@@ -59,8 +60,12 @@ def cell_summary(cell: Cell, res: SearchResult) -> Dict:
         # no feasible design found: None (not inf) keeps every campaign
         # artifact strict JSON
         row.update(ppa_score=None)
+    # scenario keys appear ONLY off the default point / under an SLO, so
+    # default-scenario summaries stay those of a grid without scenarios
     if cell.dtype != DEFAULT_DTYPE or cell.phase != DEFAULT_PHASE:
         row.update(dtype=cell.dtype, phase=cell.phase)
+    if res.ttft_ms is not None:
+        row.update(ttft_ms=res.ttft_ms, slo_ok=res.slo_ok)
     return row
 
 
@@ -79,7 +84,21 @@ def run_batch(store: CampaignStore, batch: CellBatch, workload: Workload,
         search=sc, lanes_per_cell=spec.lanes,
         checkpoint_dir=store.ckpt_dir(batch.batch_id),
         checkpoint_every=spec.checkpoint_every, resume=True,
-        save_weights_to=store.weights_dir(batch.batch_id), device=device)
+        save_weights_to=store.weights_dir(batch.batch_id),
+        scenario=batch_scenario(batch, spec), device=device)
+
+
+def batch_scenario(batch: CellBatch, spec: CampaignSpec) -> Optional[Dict]:
+    """SLO-aware selection payload for ``run_search_cells`` (None when the
+    spec carries no SLO, which leaves the search as it is without one):
+    the paired prefill workload supplies TTFT, the cell's own search
+    supplies tokens/s, and the per-mode SLO targets come from the spec."""
+    if spec.slo is None:
+        return None
+    aux = extract(get_config(batch.arch), seq_len=spec.seq_len,
+                  batch=spec.batch, phase="prefill", dtype=batch.dtype)
+    return dict(aux_wl=aux, slo=resolve_slo(spec.slo, batch.mode),
+                seq_len=spec.seq_len, batch=spec.batch)
 
 
 def _resumed_spec(store: CampaignStore, root: str,

@@ -1,9 +1,11 @@
 """Architecture configuration system (copy of ``repro.configs.base``).
 
-One ``ArchConfig`` describes a workload model for the DSE plane
-(operator-graph extraction feeding the paper's RL compiler).  Every
-architecture ported so far has a module in ``repro_torch.configs`` exposing
-``CONFIG`` (full size) and ``reduced()`` (smoke-test size).
+One ``ArchConfig`` describes a workload model for BOTH planes of the
+framework: the workload plane (model definition and serving) and the DSE
+plane (operator-graph extraction feeding the paper's RL compiler).  Every
+assigned architecture has a module in ``repro_torch.configs`` exposing
+``CONFIG`` (full size) and ``reduced()`` (smoke-test size, runs a real step
+on CPU).
 """
 from __future__ import annotations
 
@@ -219,9 +221,11 @@ class ArchConfig:
 
 # ----------------------------------------------------------------------------
 ARCH_IDS = (
-    # the paper's own workloads, and the zoo's one hybrid Mamba model (the
-    # rest of the reference zoo is not ported yet):
-    "llama3.1-8b", "smolvlm", "jamba-v0.1-52b",
+    "minicpm3-4b", "smollm-135m", "qwen1.5-110b", "qwen2-72b",
+    "llama-3.2-vision-90b", "llama4-maverick-400b-a17b", "mixtral-8x7b",
+    "jamba-v0.1-52b", "whisper-medium", "xlstm-1.3b",
+    # paper's own workloads:
+    "llama3.1-8b", "smolvlm",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -1,0 +1,14 @@
+"""Qwen2-72B: dense decoder, GQA + QKV bias. [arXiv:2407.10671; hf]
+80L d_model=8192 64H (kv=8) d_ff=29568 vocab=152064."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b", family="dense", n_layers=80, d_model=8192, n_heads=64,
+    n_kv_heads=8, d_ff=29568, vocab=152064, qkv_bias=True,
+)
+
+def reduced() -> ArchConfig:
+    return ArchConfig(
+        name="qwen2-72b-reduced", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, d_ff=128, vocab=256, qkv_bias=True,
+    )

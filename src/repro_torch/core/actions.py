@@ -29,6 +29,20 @@ _DISC_FIELDS = np.array([cs.IDX["mesh_w"], cs.IDX["mesh_h"], cs.IDX["sc_x"],
                          cs.IDX["sc_y"]], np.int64)
 
 
+def apply_action(cfg: np.ndarray, a_cont: np.ndarray, a_disc: np.ndarray
+                 ) -> np.ndarray:
+    """Apply one action to a design vector (the scalar engine's host
+    path); returns the projected new vector.
+
+    a_cont: [30] in [-1,1];  a_disc: [4] integer category ids in [0,5).
+    """
+    new = np.array(cfg, dtype=np.float32, copy=True)
+    new[4:30] += np.asarray(a_cont[:26], np.float32) * CONT_SCALE
+    for j, f in enumerate(_DISC_FIELDS):
+        new[f] += DISC_DELTAS[int(a_disc[j])]
+    return cs.project(torch.as_tensor(new)).numpy()
+
+
 def cont_delta(a_cont: np.ndarray) -> np.ndarray:
     """Host-side continuous design deltas: (B, 30) actions -> (B, 26).
 
@@ -55,4 +69,10 @@ def random_action_batch(rng: np.random.Generator, batch: int
     reference)."""
     a_c = rng.uniform(-1.0, 1.0, size=(batch, N_CONT)).astype(np.float32)
     a_d = rng.integers(0, N_DISC_OPTIONS, size=(batch, N_DISC)).astype(np.int32)
+    return a_c, a_d
+
+
+def random_action(rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+    a_c = rng.uniform(-1.0, 1.0, size=N_CONT).astype(np.float32)
+    a_d = rng.integers(0, N_DISC_OPTIONS, size=N_DISC).astype(np.int32)
     return a_c, a_d

@@ -8,7 +8,8 @@ reference vmaps its single-state ``plan`` over the batch; here the batch
 axis is written out.  The rollouts go through the kernels, as the
 reference's kernel docstrings intend: the actor through ``actor_moe``, the
 world-model step and the surrogate reward through ``fused_mlp`` (their
-plain versions for CPU tensors).
+plain versions for CPU tensors).  :func:`refine` blends a plan into the SAC
+action on the TCC dims.
 """
 from __future__ import annotations
 
@@ -60,3 +61,11 @@ def plan(actor_params: Dict, wm_params: Dict, sur_params: Dict,
     g = torch.stack(rews).sum(dim=0)                                 # [B, k]
     best = torch.argmax(g, dim=1)
     return a0[torch.arange(b, device=s.device), best]
+
+
+def refine(a_sac: torch.Tensor, a_mpc: torch.Tensor) -> torch.Tensor:
+    """Blend MPC and SAC actions on the TCC dims (70/30, paper §3.16)."""
+    blended = BLEND_MPC * a_mpc + (1.0 - BLEND_MPC) * a_sac
+    out = a_sac.clone()
+    out[..., :TCC_ACTION_DIMS] = blended[..., :TCC_ACTION_DIMS]
+    return out

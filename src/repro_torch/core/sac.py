@@ -5,8 +5,9 @@ The critics see only the continuous action (82 = 52 + 30); the 4 discrete
 mesh/SC heads are trained with a policy gradient on the TD advantage.
 :func:`update` takes gradients with autograd through the plain actor, as
 the reference differentiates its jnp actor.  Acting
-(:func:`policy_act_batch`) runs the actor through ``kernels.actor_moe``: the
-CUDA kernel on the card, the plain version on the CPU.
+(:func:`policy_act_batch`, :func:`policy_act` for one state,
+:func:`policy_mean`) runs the actor through ``kernels.actor_moe``: the CUDA
+kernel on the card, the plain version on the CPU.
 
 Device noise is an explicit argument (``noise``) or is drawn from the
 ``torch.Generator`` passed as ``gen``.
@@ -205,3 +206,23 @@ def policy_act_batch(actor_params: Dict, s: torch.Tensor, *,
     a = torch.tanh(mu + torch.exp(log_std) * noise.normal)
     a_d = torch.argmax(disc_logits + noise.gumbel, dim=-1)
     return a, a_d
+
+
+def policy_act(actor_params: Dict, s: torch.Tensor, *,
+               noise: Optional[nets.PolicyNoise] = None,
+               gen: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample one action (a_cont [30], a_disc [4]) for one state s [52]:
+    :func:`policy_act_batch` at B = 1 (the scalar engine's act path)."""
+    a, a_d = policy_act_batch(actor_params, s[None], noise=noise, gen=gen)
+    return a[0], a_d[0]
+
+
+@torch.no_grad()
+def policy_mean(actor_params: Dict, s: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic (mean) action for one state s [52]: tanh'd means [30]
+    and the discrete heads' argmax [4]."""
+    disc_logits, mu, _, _ = nets.actor_forward(actor_params, s[None],
+                                               actor_moe.actor_forward)
+    return mu[0], torch.argmax(disc_logits[0], dim=-1)

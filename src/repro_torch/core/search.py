@@ -1,8 +1,10 @@
-"""Algorithm 1 on the batched engine (port of ``repro.core.search``):
-epsilon-greedy SAC with PER, online world-model training, MPC refinement
-during exploitation (eps < 0.15), surrogate-gated K-candidate screening,
+"""Algorithm 1 (port of ``repro.core.search``): epsilon-greedy SAC with
+PER, online world-model training, MPC refinement during exploitation
+(eps < 0.15), surrogate-gated K-candidate screening (batched engine),
 Pareto archiving of every feasible configuration, and post-convergence
-scalarized selection.
+scalarized (or, under a serving scenario, SLO-aware) selection.  Also the
+scalar production loop (:func:`run_sac`, one environment per step) and the
+random-search and grid-search baselines of Table 21.
 
 Host randomness (env resets, random actions, eps-greedy, PER sampling, the
 screen stream) is numpy, consumed exactly as the reference consumes it.
@@ -19,9 +21,13 @@ weights snapshot use the reference's layout and leaf names
 ``device/gen`` and ``device/screen_gen`` in place of the reference's
 ``device/key`` and ``device/screen_key``.
 
-Not ported yet: ``devices``, ``warm_start``, ``scenario`` (SLO
-selection), telemetry, and the scalar ``run_sac`` / ``run_random`` /
-``run_grid`` baselines.
+The scalar loop keeps its PER on the run's device too (one ``sumtree``
+launch an insert, ``sumtree_sample`` an update) and acts through the
+``actor_moe`` kernel at B = 1; its numpy streams are the reference's, so
+:func:`run_random` draws the reference's configurations and
+:func:`run_grid` walks its lattice.
+
+Not ported yet: ``devices``, ``warm_start`` and telemetry.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from repro_torch.core import actions as act
 from repro_torch.core import mpc as mpc_mod
 from repro_torch.core import sac as sac_mod
 from repro_torch.core import world_model as wm_mod
-from repro_torch.core.env import VecDSEEnv
+from repro_torch.core import reward as rwd
+from repro_torch.core.env import DSEEnv, VecDSEEnv
 from repro_torch.core.exploration import EpsilonSchedule
 from repro_torch.core.hetero import HeteroConfig, derive
 from repro_torch.core.pareto import ArchiveEntry, ParetoArchive
@@ -49,7 +56,8 @@ from repro_torch.core.replay import PERBuffer
 from repro_torch.core.state import SAC_STATE_DIM
 from repro_torch.ppa import config_space as cs
 from repro_torch.ppa import surrogate as sur_mod
-from repro_torch.ppa.analytic import M_DIM, M_IDX, evaluate_vec
+from repro_torch.ppa.analytic import (M_DIM, M_IDX, evaluate_batch,
+                                      evaluate_vec)
 from repro_torch.workload.features import Workload
 
 SCREEN_SEED_OFFSET = 7919   # the reference's dedicated screen-stream seed
@@ -66,6 +74,7 @@ class SearchConfig:
     reset_period: int = 500
     seed: int = 0
     early_stop_patience: int = 1500
+    update_every: int = 1         # scalar loop: env-steps between updates
     wm_batch: int = 256
     surrogate_every: int = 8
     verbose: bool = False
@@ -104,6 +113,11 @@ class SearchResult:
     gate_open_episode: Optional[int] = None
     screened: int = 0
     evaluated: int = 0
+    # SLO-aware scenario selection (set only when run_search_cells got a
+    # ``scenario``): prefill-phase TTFT of the chosen design and whether it
+    # met both SLO targets
+    ttft_ms: Optional[float] = None
+    slo_ok: Optional[bool] = None
     # host-clock seconds of each dispatch (each ends in a device->host copy,
     # so the clock covers the device work), and how many dispatches ran MPC;
     # shared by all cells of a run
@@ -118,6 +132,155 @@ class SearchResult:
 
 def _cfg_key(cfg: np.ndarray) -> tuple:
     return tuple(np.round(np.asarray(cfg, np.float64), 3).tolist())
+
+
+def _update_best(best, metrics, cfg, archive, episode):
+    """paper line 15: if PPA < s* and feasible -> keep."""
+    score = float(metrics[M_IDX["ppa_score"]])
+    feas = metrics[M_IDX["feasible"]] > 0.5
+    if feas:
+        archive.insert(ArchiveEntry(
+            cfg=cfg.copy(), power_mw=float(metrics[M_IDX["power_mw"]]),
+            perf_gops=float(metrics[M_IDX["perf_gops"]]),
+            area_mm2=float(metrics[M_IDX["area_mm2"]]),
+            tok_s=float(metrics[M_IDX["tok_s"]]),
+            ppa_score=score, episode=episode))
+        if score < best[0]:
+            return (score, cfg.copy(), metrics.copy()), True
+    return best, feas
+
+
+def run_sac(workload: Workload, node_nm: int, *, high_perf: bool = True,
+            search: Optional[SearchConfig] = None,
+            device="cuda") -> SearchResult:
+    """The paper's production flow on one environment (the scalar
+    engine): SAC + MoE + PER + world model + MPC, one env-step and (from
+    the warm-up on, every ``update_every`` steps) one SAC update at a time.
+
+    Host randomness (eps-greedy, random actions, env resets, PER uniforms,
+    surrogate minibatches) is the reference's numpy streams; device noise
+    comes from one ``torch.Generator`` seeded with ``sc.seed`` on the run's
+    device, so two same-seed runs on one device are identical."""
+    sc = search or SearchConfig()
+    dev = device_mod.resolve(device)
+    t0 = time.time()
+    env = DSEEnv(workload, node_nm, high_perf=high_perf, seed=sc.seed,
+                 device=dev)
+    rng = np.random.default_rng(sc.seed)
+    gen = torch.Generator(device=dev).manual_seed(sc.seed)
+    to_dev = lambda x: torch.as_tensor(x, device=dev)
+
+    sac_state = sac_mod.create(sc.seed, dev)
+    wm_state = wm_mod.create(sc.seed + 1, dev)
+    surrogate = sur_mod.Surrogate.create(SAC_STATE_DIM + act.N_CONT,
+                                         seed=sc.seed + 2, device=dev)
+    buf = PERBuffer(SAC_STATE_DIM, act.N_CONT, act.N_DISC, seed=sc.seed,
+                    device=dev)
+    eps_sched = EpsilonSchedule(sc.eps0, sc.eps_min, sc.episodes)
+    archive = ParetoArchive()
+    trace: List[TracePoint] = []
+    seen: set = set()
+    best = (np.inf, None, None)
+    feasible_count = 0
+    last_entropy = 0.0
+    no_improve = 0
+    mpc_steps = 0
+    step_s: List[float] = []
+
+    sur_x: List[np.ndarray] = []
+    sur_y: List[np.ndarray] = []
+
+    s = env.reset()
+    t = 0
+    for t in range(sc.episodes):
+        _dt0 = time.time()
+        # ---- action selection: eps-greedy over SAC policy (Alg. 1 l.6) ----
+        if rng.random() < eps_sched.eps:
+            a_c, a_d = act.random_action(rng)
+        else:
+            s_dev = to_dev(s)
+            a_c_t, a_d_t = sac_mod.policy_act(sac_state.params.actor, s_dev,
+                                              gen=gen)
+            # MPC refinement during exploitation (Alg. 1 l.14)
+            if (eps_sched.eps < sc.mpc_eps_gate and surrogate.accepted
+                    and wm_mod.trained(wm_state)):
+                a_mpc = mpc_mod.plan(sac_state.params.actor, wm_state.params,
+                                     surrogate.params, s_dev[None],
+                                     gen=gen)[0]
+                a_c_t = mpc_mod.refine(a_c_t, a_mpc)
+                mpc_steps += 1
+            a_c, a_d = _np(a_c_t), _np(a_d_t).astype(np.int32)
+        # ---- env transition (Alg. 1 l.7-10) -------------------------------
+        s2, r, info = env.step(a_c, a_d)
+        buf.add_batch(s[None], a_c[None], a_d[None],
+                      np.asarray([r], np.float32), s2[None],
+                      np.zeros(1, np.float32))
+        sur_x.append(np.concatenate([s, a_c]).astype(np.float32))
+        sur_y.append(info.metrics.astype(np.float32))
+        prev_best_score = best[0]
+        best, feas = _update_best(best, info.metrics, info.cfg, archive, t)
+        feasible_count += int(feas)
+        seen.add(_cfg_key(info.cfg))
+        no_improve = 0 if best[0] < prev_best_score else no_improve + 1
+        # ---- learn (Alg. 1 l.12-13) ---------------------------------------
+        if buf.size >= max(sc.batch_size, min(sc.warmup, sc.episodes // 4)) \
+                and t % sc.update_every == 0:
+            batch_d, idx = buf.sample(sc.batch_size)
+            sac_state, td_abs, met = sac_mod.update(
+                sac_state, sac_mod.Batch(**batch_d), gen=gen)
+            buf.update_priorities(idx, td_abs)
+            last_entropy = float(met["entropy"])
+            wmb = buf.recent(sc.wm_batch)
+            wm_state, _ = wm_mod.train_step(wm_state, wmb["s"],
+                                            wmb["a_cont"], wmb["s2"])
+            if t % sc.surrogate_every == 0 and len(sur_x) >= 64:
+                pick = rng.integers(0, len(sur_x), size=min(256, len(sur_x)))
+                surrogate.update(np.stack([sur_x[i] for i in pick]),
+                                 np.stack([sur_y[i] for i in pick]))
+                if len(sur_x) > 20_000:   # bound host memory
+                    sur_x = sur_x[-10_000:]
+                    sur_y = sur_y[-10_000:]
+        step_s.append(time.time() - _dt0)
+        # ---- epsilon decay (Eq. 9) ----------------------------------------
+        eps_sched.step(found_feasible=feasible_count > 0)
+        if t % 50 == 0 or t == sc.episodes - 1:
+            trace.append(TracePoint(
+                episode=t, reward=r, best_score=float(best[0]),
+                eps=eps_sched.eps, entropy=last_entropy,
+                unique_configs=len(seen), feasible_count=feasible_count,
+                tok_s=float(info.metrics[M_IDX["tok_s"]])))
+            if sc.verbose:
+                print(f"  ep {t:5d} r={r:+.3f} best={best[0]:.4f} "
+                      f"eps={eps_sched.eps:.3f} feas={feasible_count}")
+        if t % sc.reset_period == sc.reset_period - 1:
+            s = env.reset()
+        else:
+            s = s2
+        if (no_improve > sc.early_stop_patience
+                and eps_sched.eps <= sc.eps_min + 1e-6):
+            break
+
+    # ---- final selection: Pareto-scalarized (paper §3.10) ----------------
+    sel = archive.select(env.reward_model.w_perf, env.reward_model.w_power,
+                         env.reward_model.w_area)
+    best_cfg = sel.cfg if sel is not None else best[1]
+    best_metrics = (env.evaluate_config(best_cfg)
+                    if best_cfg is not None else None)
+    hetero = None
+    if best_cfg is not None:
+        env.cfg = best_cfg.copy()
+        env._repartition()
+        hetero = derive(best_cfg, env.partition_result,
+                        weight_bytes_total=workload.f("weight_mb") * 1e6)
+    return SearchResult(
+        method="sac", node_nm=node_nm, best_cfg=best_cfg,
+        best_metrics=best_metrics,
+        best_score=(float(best_metrics[M_IDX["ppa_score"]])
+                    if best_metrics is not None else float("inf")),
+        archive=archive, trace=trace, hetero=hetero, episodes_run=t + 1,
+        feasible_count=feasible_count, unique_configs=len(seen),
+        wall_s=time.time() - t0, screened=t + 1, evaluated=t + 1,
+        dispatch_s=step_s, mpc_dispatches=mpc_steps)
 
 
 def _restore_np_rng(state: Dict) -> np.random.Generator:
@@ -160,10 +323,19 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     ``checkpoint_every`` dispatches; ``resume=True`` restarts from the
     latest checkpoint and reproduces the uninterrupted run bit-for-bit.
     ``save_weights_to`` snapshots the final SAC and surrogate parameters
-    there (``keep=1``).  ``devices``, ``warm_start`` and ``scenario`` are
+    there (``keep=1``).
+
+    ``scenario`` (SLO-aware phase combination): a dict with ``aux_wl``
+    (the prefill-phase :class:`Workload` paired with the decode search
+    workload), ``slo`` (resolved ``{"ttft_ms", "tok_s"}`` targets),
+    ``seq_len`` and ``batch``.  Final selection then minimises
+    ``reward.slo_objective`` over each cell's Pareto archive — TTFT from
+    the prefill evaluation on the run's device, tokens/s from decode —
+    instead of the plain scalarisation, and the results carry
+    ``ttft_ms``/``slo_ok``.  Strictly post-loop: ``scenario=None`` is the
+    engine without it, bit for bit.  ``devices`` and ``warm_start`` are
     not ported yet and raise."""
-    for name, val in (("devices", devices), ("warm_start", warm_start),
-                      ("scenario", scenario)):
+    for name, val in (("devices", devices), ("warm_start", warm_start)):
         if val is not None:
             raise NotImplementedError(
                 f"run_search_cells: {name} is not ported to repro_torch yet")
@@ -481,6 +653,33 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     for c, node_nm in enumerate(node_nms):
         sel = archives[c].select(env.w_perf, env.w_power, env.w_area)
         best_cfg = sel.cfg if sel is not None else best[c][1]
+        ttft = slo_ok = None
+        # SLO-aware scenario selection: re-evaluate the cell's Pareto
+        # archive under the paired prefill workload and pick the entry
+        # minimising the combined objective (decode ppa_score + SLO hinge
+        # penalties).  Strictly after the loop, so checkpoints and the
+        # scenario=None path are untouched.
+        if scenario is not None and archives[c].entries:
+            ents = archives[c].entries
+            with torch.no_grad():
+                pre = _np(evaluate_batch(
+                    cs.project(to_dev(np.stack([e.cfg for e in ents])
+                                      .astype(np.float32))),
+                    to_dev(np.asarray(scenario["aux_wl"].features,
+                                      np.float32)),
+                    env.node_mat[c * lanes]))
+            slo = scenario["slo"]
+            ttfts = [rwd.ttft_ms(pre[i, M_IDX["tok_s"]],
+                                 scenario["seq_len"], scenario["batch"])
+                     for i in range(len(ents))]
+            objs = [rwd.slo_objective(e.ppa_score, e.tok_s, tt, slo)
+                    for e, tt in zip(ents, ttfts)]
+            pick = int(np.argmin(objs))
+            best_cfg = ents[pick].cfg
+            ttft = float(ttfts[pick])
+            slo_ok = bool(
+                (not slo.get("tok_s") or ents[pick].tok_s >= slo["tok_s"])
+                and (not slo.get("ttft_ms") or ttft <= slo["ttft_ms"]))
         best_metrics = None
         hetero = None
         if best_cfg is not None:
@@ -502,8 +701,8 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
             gate_open_episode=(int(gate.open_at[c])
                                if gate.open_at[c] >= 0 else None),
             screened=int(gate.screened[c]),
-            evaluated=int(gate.evaluated[c]), dispatch_s=dispatch_s,
-            mpc_dispatches=mpc_dispatches))
+            evaluated=int(gate.evaluated[c]), ttft_ms=ttft, slo_ok=slo_ok,
+            dispatch_s=dispatch_s, mpc_dispatches=mpc_dispatches))
     return results
 
 
@@ -524,3 +723,91 @@ def search_all_nodes(workload: Workload, nodes: Sequence[int], *,
     """Algorithm 1 outer loop on the batched engine (Eq. 50)."""
     return {n: run_search(workload, n, high_perf=high_perf, search=search,
                           n_envs=n_envs, device=device) for n in nodes}
+
+
+
+# --------------------------------------------------------------------------
+def run_random(workload: Workload, node_nm: int, *, high_perf: bool = True,
+               episodes: int = 4613, seed: int = 0,
+               device="cuda") -> SearchResult:
+    """Random-search baseline (Table 21): the reference's numpy draws, each
+    configuration evaluated on the run's device."""
+    t0 = time.time()
+    env = DSEEnv(workload, node_nm, high_perf=high_perf, seed=seed,
+                 device=device)
+    rng = np.random.default_rng(seed)
+    archive = ParetoArchive()
+    best = (np.inf, None, None)
+    feas_count = 0
+    seen = set()
+    trace = []
+    for t in range(episodes):
+        cfg = cs.random_config(rng)
+        m = env.evaluate_config(cfg)
+        best, feas = _update_best(best, m, cfg, archive, t)
+        feas_count += int(feas)
+        seen.add(_cfg_key(cfg))
+        if t % 50 == 0:
+            trace.append(TracePoint(t, 0.0, float(best[0]), 1.0, 0.0,
+                                    len(seen), feas_count,
+                                    float(m[M_IDX["tok_s"]])))
+    return SearchResult("random", node_nm, best[1], best[2], float(best[0]),
+                        archive, trace, None, episodes, feas_count,
+                        len(seen), time.time() - t0,
+                        screened=episodes, evaluated=episodes)
+
+
+def run_grid(workload: Workload, node_nm: int, *, high_perf: bool = True,
+             episodes: int = 4613, seed: int = 0,
+             device="cuda") -> SearchResult:
+    """Grid-search baseline (Table 21): the reference's lattice over the
+    dominant axes, in its order, each point evaluated on the run's
+    device."""
+    t0 = time.time()
+    env = DSEEnv(workload, node_nm, high_perf=high_perf, seed=seed,
+                 device=device)
+    archive = ParetoArchive()
+    best = (np.inf, None, None)
+    feas_count = 0
+    seen = set()
+    trace = []
+    # lattice sized to the episode budget
+    meshes = np.unique(np.linspace(2, 64, 14).astype(int))
+    vlens = np.array([256, 512, 1024, 1536, 2048])
+    wmems = np.array([1024, 4096, 9800, 16384, 32768, 65536])
+    freqs = np.array([0.25, 0.5, 1.0])
+    t = 0
+    for mw in meshes:
+        for vl in vlens:
+            for wm in wmems:
+                for fq in freqs:
+                    if t >= episodes:
+                        break
+                    cfg = cs.default_config()
+                    cfg[cs.IDX["mesh_w"]] = mw
+                    cfg[cs.IDX["mesh_h"]] = mw
+                    cfg[cs.IDX["vlen"]] = vl
+                    cfg[cs.IDX["wmem_kb"]] = wm
+                    cfg[cs.IDX["freq_frac"]] = fq
+                    m = env.evaluate_config(cfg)
+                    best, feas = _update_best(best, m, cfg, archive, t)
+                    feas_count += int(feas)
+                    seen.add(_cfg_key(cfg))
+                    if t % 50 == 0:
+                        trace.append(TracePoint(
+                            t, 0.0, float(best[0]), 0.0, 0.0, len(seen),
+                            feas_count, float(m[M_IDX["tok_s"]])))
+                    t += 1
+    return SearchResult("grid", node_nm, best[1], best[2], float(best[0]),
+                        archive, trace, None, t, feas_count, len(seen),
+                        time.time() - t0, screened=t, evaluated=t)
+
+
+def run_all_nodes(workload: Workload, nodes: Sequence[int], *,
+                  high_perf: bool = True,
+                  search: Optional[SearchConfig] = None,
+                  device="cuda") -> Dict[int, SearchResult]:
+    """Algorithm 1 outer loop: sequential per-node optimisation (Eq. 50)
+    on the scalar engine."""
+    return {n: run_sac(workload, n, high_perf=high_perf, search=search,
+                       device=device) for n in nodes}

@@ -1,24 +1,33 @@
-"""DSE entry point — Algorithm 1 on the batched engine as a CLI (port of
-``repro.launch.dse`` for ``--method sac --engine vec``).
+"""DSE entry point — Algorithm 1 and the Table-21 baselines as a CLI (port
+of ``repro.launch.dse``).
 
     python -m repro_torch.launch.dse --arch llama3.1-8b --nodes 3 \\
         --episodes 4613 --engine vec --n-envs 64 --device cuda --out DIR
+    python -m repro_torch.launch.dse --arch llama3.1-8b --nodes 3 \\
+        --episodes 1024 --engine scalar [--update-every N] --device cuda
+    python -m repro_torch.launch.dse --arch llama3.1-8b --nodes 3 \\
+        --method random|grid --episodes 4613 --device cuda
+
+``--method sac`` runs on the batched engine (``--engine vec``, the default
+here) or on the scalar one (``--engine scalar``: one environment a step);
+``--method random`` and ``grid`` are the baselines, on the scalar
+evaluator.
 
 Writes the reference's four artifacts per run under ``--out``:
 ``<arch>__<node>nm__sac_tcc.json`` (per-TCC derivation),
 ``..._trace.json`` (convergence trace), ``..._pareto.json`` (frontier) and
 ``<arch>__sac_summary.json`` (one result row per node).
 
-Campaigns (``repro_torch.campaign``) run a whole grid and resume a killed
-one bit-for-bit:
+Campaigns (``repro_torch.campaign``) run a whole grid (with scenario axes
+``dtypes``/``phases`` and SLO-aware selection, ``slo``) and resume a
+killed one bit-for-bit:
 
     python -m repro_torch.launch.dse --campaign grid.json --device cuda \
         [--campaign-root experiments/campaigns]
     python -m repro_torch.launch.dse --resume experiments/campaigns/<name>
 
-Fleets (``--workers`` and its flags), ``--transfer-from``,
-``--devices``/``--mesh``, the scalar engine and the random/grid baselines
-are not ported yet and are refused.
+Fleets (``--workers`` and its flags), ``--transfer-from`` and
+``--devices``/``--mesh`` are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -30,7 +39,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.core.search import SearchConfig, SearchResult, run_search
+from repro_torch.core.search import (SearchConfig, SearchResult, run_grid,
+                                     run_random, run_sac, run_search)
 from repro_torch.ppa.nodes import NODES
 from repro_torch.workload.extract import DTYPES, PHASES, extract
 
@@ -55,7 +65,7 @@ def result_row(res: SearchResult) -> Dict:
 
 def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         method: str = "sac", out_dir: str, seed: int = 0, seq_len: int = 2048,
-        batch: int = 3, verbose: bool = False,
+        batch: int = 3, update_every: int = 1, verbose: bool = False,
         engine: str = "vec", n_envs: int = 64,
         surrogate_gate: bool = True, screen_k: Optional[int] = None,
         gate_threshold: Optional[float] = None, phase: str = "decode",
@@ -63,10 +73,6 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         results: Optional[List[SearchResult]] = None) -> List[Dict]:
     """Run the search per node and write the artifacts; returns the rows.
     ``results``, when given, collects each node's :class:`SearchResult`."""
-    if method != "sac" or engine != "vec":
-        raise NotImplementedError(
-            f"--method {method} --engine {engine}: only --method sac "
-            "--engine vec is ported")
     cfg = get_config(arch)
     high_perf = mode == "high-performance"
     wl = extract(cfg, seq_len=seq_len, batch=batch, phase=phase, dtype=dtype)
@@ -78,10 +84,22 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         gate_kw["gate_threshold"] = gate_threshold
     rows = []
     for node in nodes:
-        sc = SearchConfig(episodes=episodes, seed=seed, verbose=verbose,
-                          **gate_kw)
-        res = run_search(wl, node, high_perf=high_perf, search=sc,
-                         n_envs=n_envs, device=device)
+        if method == "sac":
+            sc = SearchConfig(episodes=episodes, seed=seed,
+                              update_every=update_every, verbose=verbose,
+                              **gate_kw)
+            if engine == "vec":
+                res = run_search(wl, node, high_perf=high_perf, search=sc,
+                                 n_envs=n_envs, device=device)
+            else:
+                res = run_sac(wl, node, high_perf=high_perf, search=sc,
+                              device=device)
+        elif method == "random":
+            res = run_random(wl, node, high_perf=high_perf,
+                             episodes=episodes, seed=seed, device=device)
+        else:
+            res = run_grid(wl, node, high_perf=high_perf,
+                           episodes=episodes, seed=seed, device=device)
         if results is not None:
             results.append(res)
         row = result_row(res)
@@ -123,14 +141,22 @@ def validate_args(ap: argparse.ArgumentParser,
     for flag, attr, part in _NOT_PORTED:
         if getattr(a, attr) not in (None, False):
             ap.error(f"{flag}: not ported to repro_torch yet ({part})")
-    if a.method != "sac" or a.engine != "vec":
-        ap.error(f"--method {a.method} --engine {a.engine}: only --method "
-                 "sac --engine vec is ported to repro_torch")
-    if a.update_every != 1:
-        ap.error("--update-every: the vec engine updates per dispatch "
-                 "(SearchConfig.updates_per_dispatch); only 1 is accepted")
     if a.n_envs < 1:
         ap.error(f"--n-envs must be >= 1 (got {a.n_envs})")
+    if a.engine == "scalar" and a.n_envs != ap.get_default("n_envs"):
+        ap.error(f"--n-envs {a.n_envs} only applies to --engine vec; the "
+                 "scalar engine steps one environment (drop --n-envs or "
+                 "pass --engine vec)")
+    if a.engine == "vec" and a.method != "sac":
+        ap.error(f"--engine vec only drives the SAC search loop; "
+                 f"--method {a.method} runs on the scalar evaluator "
+                 "(drop --engine vec)")
+    if a.update_every < 1:
+        ap.error(f"--update-every must be >= 1 (got {a.update_every})")
+    if a.update_every != 1 and (a.engine != "scalar" or a.method != "sac"):
+        ap.error("--update-every applies to --method sac --engine scalar; "
+                 "the vec engine updates per dispatch "
+                 "(SearchConfig.updates_per_dispatch)")
     if a.screen_k is not None and a.screen_k < 1:
         ap.error(f"--screen-k must be >= 1 (got {a.screen_k})")
     if a.gate_threshold is not None and a.gate_threshold < 0:
@@ -144,13 +170,17 @@ def validate_args(ap: argparse.ArgumentParser,
         ap.error(f"{'/'.join(gate_flags)}: a resumed campaign keeps the "
                  "gate settings recorded in its manifest; start a new "
                  "campaign to change them")
+    if gate_flags and not a.campaign and a.engine != "vec":
+        ap.error(f"{'/'.join(gate_flags)} applies to --engine vec or "
+                 "--campaign runs; the scalar engine has no surrogate "
+                 "screening gate")
     scen_flags = [n for n, v, d in (("--phase", a.phase, "decode"),
                                     ("--dtype", a.dtype, "native"))
                   if v != d]
     if scen_flags and (a.campaign or a.resume):
         ap.error(f"{'/'.join(scen_flags)} select the single-search "
-                 "scenario; scenario grids ('phases'/'dtypes' in the spec) "
-                 "are not ported to repro_torch yet")
+                 "scenario; campaign grids sweep these as 'phases'/"
+                 "'dtypes' axes in the spec file")
     if a.campaign and a.resume:
         ap.error("--campaign starts a new run and --resume continues an "
                  "existing one; pass exactly one")
@@ -209,11 +239,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=3)
-    ap.add_argument("--phase", default="decode", choices=list(PHASES))
-    ap.add_argument("--dtype", default="native", choices=list(DTYPES))
+    ap.add_argument("--phase", default="decode", choices=list(PHASES),
+                    help="inference phase to extract the workload for "
+                         "(campaign grids take a 'phases' list in the spec "
+                         "instead)")
+    ap.add_argument("--dtype", default="native", choices=list(DTYPES),
+                    help="datapath dtype override (campaign grids take a "
+                         "'dtypes' list in the spec instead)")
     ap.add_argument("--update-every", type=int, default=1,
-                    help="scalar engine only; the vec engine takes 1")
-    ap.add_argument("--engine", default="vec", choices=["scalar", "vec"])
+                    help="scalar engine: env-steps between SAC updates")
+    ap.add_argument("--engine", default=None, choices=["scalar", "vec"],
+                    help="vec (batched, the default for --method sac) or "
+                         "scalar (one environment; random/grid run here)")
     ap.add_argument("--n-envs", type=int, default=64)
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--screen-k", type=int, default=None)
@@ -238,6 +275,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device of the run: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     a = ap.parse_args(argv)
+    if a.engine is None:
+        a.engine = "vec" if a.method == "sac" else "scalar"
     validate_args(ap, a)
     if a.campaign or a.resume:
         run_campaign_cli(ap, a)
@@ -246,7 +285,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         int(x) for x in a.nodes.split(",")]
     run(a.arch, nodes=nodes, mode=a.mode, episodes=a.episodes,
         method=a.method, out_dir=a.out, seed=a.seed, seq_len=a.seq_len,
-        batch=a.batch, verbose=a.verbose,
+        batch=a.batch, update_every=a.update_every, verbose=a.verbose,
         engine=a.engine, n_envs=a.n_envs,
         surrogate_gate=not a.no_surrogate_gate, screen_k=a.screen_k,
         gate_threshold=a.gate_threshold, phase=a.phase, dtype=a.dtype,

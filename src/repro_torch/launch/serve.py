@@ -5,7 +5,12 @@ reporting the prefill time and decode tokens/s.
     python -m repro_torch.launch.serve --arch llama3.1-8b --reduced \
         --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu
 
-The reference's recommendation server (``--recommend``) is not ported yet.
+Every attention-only config of the zoo serves (``llama3.1-8b``,
+``smolvlm``, ``smollm-135m``, ``qwen1.5-110b``, ``qwen2-72b``,
+``mixtral-8x7b``, ``llama4-maverick-400b-a17b``), and ``jamba-v0.1-52b``
+with its Mamba layers; the rest (MLA, cross-attention, the Whisper encoder,
+xLSTM) is refused by name.  The reference's recommendation server
+(``--recommend``) is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Language-model assembly (port of ``repro.models.lm``) for the ported
-zoo: dense GQA models (Llama 3.1 8B), prefix VLMs (SmolVLM) and the
-Mamba/attention hybrid with MoE (Jamba v0.1).
+zoo: dense GQA models (Llama 3.1 8B, SmolLM with tied embeddings, the Qwens
+with QKV bias), prefix VLMs (SmolVLM), MoE models (Mixtral's top-2 experts
+with a sliding window, Llama 4 Maverick's top-1 with a shared expert every
+2 layers) and the Mamba/attention hybrid with MoE (Jamba v0.1).
 
 Depth is (n_periods x period), as in the reference: ``period`` is the
 smallest repeating block pattern (dense: 1; Jamba: 8 = 1 attn + 7 mamba),

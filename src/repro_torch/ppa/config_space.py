@@ -2,7 +2,9 @@
 
 The 30-dim design vector layout, bounds and quantisation steps are the
 reference's; :func:`clip`, :func:`quantize` and :func:`project` act on
-``(..., 30)`` float32 tensors on any device.
+``(..., 30)`` float32 tensors on any device.  The host helpers (field
+access, dict round trips, :func:`random_config` and the paper's anchor
+configurations) take and return numpy vectors, as the reference's do.
 """
 from __future__ import annotations
 
@@ -77,6 +79,29 @@ def project(cfg: torch.Tensor) -> torch.Tensor:
     return quantize(clip(cfg))
 
 
+def get(cfg, name: str):
+    return cfg[..., IDX[name]]
+
+
+def set_field(cfg, name: str, value):
+    """A copy of ``cfg`` (numpy array or tensor) with field ``name`` set."""
+    out = cfg.clone() if isinstance(cfg, torch.Tensor) else np.array(cfg)
+    out[..., IDX[name]] = value
+    return out
+
+
+def to_dict(cfg) -> Dict[str, float]:
+    arr = np.asarray(cfg, dtype=np.float64)
+    return {name: float(arr[..., i]) for i, name in enumerate(NAMES)}
+
+
+def from_dict(d: Dict[str, float]) -> np.ndarray:
+    cfg = default_config()
+    for k, v in d.items():
+        cfg[IDX[k]] = v
+    return cfg
+
+
 def default_config() -> np.ndarray:
     """Paper's initial mesh m0 neighbourhood: mid-range everything."""
     cfg = (LO + HI) / 2.0
@@ -91,3 +116,44 @@ def default_config() -> np.ndarray:
                         kv_window_frac=1.0).items():
         cfg[IDX[name]] = v
     return cfg.astype(np.float32)
+
+
+def random_config(rng: np.random.Generator) -> np.ndarray:
+    """Uniform sample in bounds (the random-search baseline of Table 21):
+    the reference's numpy draw, projected on the CPU."""
+    cfg = rng.uniform(LO, HI).astype(np.float32)
+    return project(torch.as_tensor(cfg)).numpy()
+
+
+def _with(cfg: np.ndarray, **fields) -> np.ndarray:
+    for k, v in fields.items():
+        cfg[IDX[k]] = v
+    return cfg
+
+
+def paper_llama_3nm_config() -> np.ndarray:
+    """The paper's reported best 3nm configuration for Llama 3.1 8B
+    (Tables 9/14/16): mesh 41x42, VLEN mix averaging 1536, FETCH ~2.5,
+    DFLIT 2048, STANUM 3, DMEM 64 KB, IMEM 6 KB, f = f_max."""
+    return _with(default_config(), mesh_w=41, mesh_h=42, sc_x=4, sc_y=4,
+                 fetch=2.5, stanum=3, vlen=1536, dmem_kb=64, wmem_kb=9800,
+                 imem_kb=6, dflit=2048, xr_wp=2, vr_wp=2, xdpnum=2, vdpnum=2,
+                 freq_frac=1.0, precision=0.0, rho_matmul=0.55, rho_conv=0.1,
+                 rho_general=0.2, kv_quant=0, kv_window_frac=1.0)
+
+
+def paper_smolvlm_config(f_max_hz: float = 1e9) -> np.ndarray:
+    """Paper Table 19 SmolVLM low-power point: 2x4 mesh @ 10 MHz ABSOLUTE
+    (freq_frac is relative to the node's f_max, so it is node-dependent)."""
+    cfg = paper_smolvlm_3nm_config()
+    cfg[IDX["freq_frac"]] = float(np.clip(1e7 / f_max_hz, 0.01, 1.0))
+    return cfg
+
+
+def paper_smolvlm_3nm_config() -> np.ndarray:
+    """Paper Table 19 SmolVLM low-power 3nm point: 2x4 mesh @ 10 MHz."""
+    return _with(default_config(), mesh_w=2, mesh_h=4, sc_x=1, sc_y=1,
+                 fetch=1, stanum=1, vlen=512, dmem_kb=32, wmem_kb=81920,
+                 imem_kb=2, dflit=256, xr_wp=1, vr_wp=1, xdpnum=1, vdpnum=1,
+                 freq_frac=0.01, precision=0.0, kv_quant=1,
+                 kv_window_frac=0.5)

@@ -89,7 +89,6 @@ def test_grid_expansion_and_packing_match_the_reference():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(workloads=["nope"]), "unknown workloads"),
-    (dict(workloads=["smollm-135m"]), "ported zoo"),
     (dict(nodes=[4]), "unknown process nodes"),
     (dict(modes=["turbo"]), "unknown modes"),
     (dict(lanes=64, max_envs=8), "max_envs"),
@@ -97,13 +96,27 @@ def test_grid_expansion_and_packing_match_the_reference():
     (dict(transfer_from=["/x"]), "transfer_from: cross-campaign"),
     (dict(devices=2), "devices: sharding"),
     (dict(hosts=["h1"]), "hosts: fleets"),
-    (dict(slo={"tok_s": 5.0}), "slo: SLO-aware"),
-    (dict(dtypes=["native", "fp8"]), "scenario grids"),
-    (dict(phases=["prefill"]), "scenario grids"),
 ])
 def test_spec_validation(kw, match):
     with pytest.raises(ValueError, match=match):
         CampaignSpec(**tiny("x", **kw))
+
+
+@pytest.mark.parametrize("kw,n_cells", [
+    (dict(workloads=["smollm-135m"]), 2),
+    (dict(slo={"tok_s": 5.0}), 2),
+    (dict(dtypes=["native", "fp8"]), 4),
+    (dict(phases=["prefill"]), 2),
+], ids=["zoo-workload", "slo", "dtypes", "phases"])
+def test_spec_accepts_the_zoo_and_scenario_axes(kw, n_cells):
+    """What the spec refused before the zoo and the scenario engine were
+    ported: a zoo workload, an SLO and scenario axes; each plans as the
+    reference's spec does."""
+    spec = CampaignSpec(**tiny("x", **kw))
+    ref = RefSpec(**tiny("x", **kw))
+    assert spec.to_dict() == ref.to_dict() and spec.n_cells == n_cells
+    assert [b.batch_id for b in plan(spec)] == [b.batch_id
+                                                for b in ref_plan(ref)]
 
 
 def test_spec_from_dict_names_bad_and_missing_keys():
@@ -285,19 +298,31 @@ def test_cli_campaign_and_resume(tmp_path, capsys):
     assert "0 cells run, all_done=True" in capsys.readouterr().out
 
 
+def test_cli_resumes_a_zoo_workload_run_dir(tmp_path, capsys):
+    """A run directory of a zoo workload the port once refused
+    (``smollm-135m``), written by the reference, resumes through the
+    port's CLI: nothing is left to run and the reports are rewritten."""
+    spec = tiny("zoo", workloads=["smollm-135m"], nodes=[7], episodes=16)
+    root = str(tmp_path / "zoo")
+    ref_run_campaign(root, RefSpec(**spec), progress=lambda m: None)
+    dse.main(["--resume", root, "--device", "cpu"])
+    assert "0 cells run, all_done=True" in capsys.readouterr().out
+    summ = CampaignStore.open(root).load_summary("smollm-135m__7nm__high_perf")
+    assert summ["arch"] == "smollm-135m"
+
+
 @pytest.mark.parametrize("flags,needle", [
     (["--workers", "2"], "--workers: not ported"),
     (["--hosts", "a,b"], "--hosts: not ported"),
     (["--transfer-from", "/x"], "--transfer-from: not ported"),
     (["--mesh", "2"], "--mesh: not ported"),
     (["--devices", "2"], "--devices: not ported"),
-    (["--phase", "prefill"], "scenario grids"),
+    (["--phase", "prefill"], "sweep these as 'phases'"),
     (["--screen-k", "3", "--resume"], "keeps the gate settings"),
     (["--resume"], "no campaign manifest"),
     (["--campaign", "GRID", "--resume"], "pass exactly one"),
     (["--campaign", "missing.json"], "grid file not found"),
     (["--campaign", "BADGRID"], "did you mean 'episodes'"),
-    (["--resume", "REFUSED"], "ported zoo"),
 ])
 def test_cli_rejects_what_is_not_ported_or_invalid(tmp_path, capsys, flags,
                                                    needle):
@@ -305,12 +330,8 @@ def test_cli_rejects_what_is_not_ported_or_invalid(tmp_path, capsys, flags,
     grid.write_text(json.dumps(tiny("cli")))
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps(dict(name="b", workloads=[ARCH], episode=3)))
-    refused = tmp_path / "refused"      # a run dir of a workload not ported
-    refused.mkdir()
-    (refused / "manifest.json").write_text(json.dumps(dict(
-        name="r", cells={}, spec=dict(tiny("r"), workloads=["smollm-135m"]))))
-    argv = [{"GRID": str(grid), "BADGRID": str(bad),
-             "REFUSED": str(refused)}.get(f, f) for f in flags]
+    argv = [{"GRID": str(grid), "BADGRID": str(bad)}.get(f, f)
+            for f in flags]
     if argv[-1] == "--resume":
         argv.append(str(tmp_path))
     if "--campaign" not in argv and "--resume" not in argv:

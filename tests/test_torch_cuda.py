@@ -3,8 +3,10 @@ at the main path's shapes and ragged ones, the device PER on the card
 against the same buffer on the CPU, the batched env step on the card
 against the CPU, the search's determinism guarantees on the card, and a
 short campaign that launches every search kernel and resumes
-bit-for-bit, and the LM kernels (``flash_attention``, ``ssm_scan``) and
-reduced LM generation on the card against the same on the CPU.
+bit-for-bit, a scenario campaign (SLO selection) and the scalar act path
+against the same on the CPU, and the LM kernels (``flash_attention``,
+``ssm_scan``, the windowed Mixtral shape among them) and reduced LM
+generation on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -134,6 +136,30 @@ def test_screen_batch_kernel_picks_match_plain(dev, b, k):
     want = torch.where(mask, plain.argmin(1), torch.zeros_like(pick))
     assert torch.equal(pick[apart], want[apart])
     assert (pick[~mask] == 0).all()
+
+
+def test_policy_act_goes_through_the_actor_kernel_at_b1(dev):
+    """The scalar engine's act path: ``sac.policy_act`` on one state is one
+    ``actor_moe`` launch at B = 1, and with the same noise picks the CPU
+    path's actions."""
+    from repro_torch.core import networks as nets
+    actor_cpu = sac.create(0, "cpu").params.actor
+    actor = to_device(actor_cpu, dev)
+    g = torch.Generator().manual_seed(4)
+    for _ in range(4):
+        s = torch.randn(52, generator=g)
+        noise = nets.draw_policy_noise(1, g, "cpu")
+        before = actor_moe.launches
+        a, d = sac.policy_act(actor, s.to(dev), noise=nets.PolicyNoise(
+            noise.normal.to(dev), noise.gumbel.to(dev)))
+        torch.cuda.synchronize()
+        assert actor_moe.launches == before + 1
+        a_c, d_c = sac.policy_act(actor_cpu, s, noise=noise)
+        torch.testing.assert_close(a.cpu(), a_c, rtol=RTOL, atol=ATOL)
+        assert torch.equal(d.cpu(), d_c)
+        mu, dm = sac.policy_mean(actor, s.to(dev))
+        mu_c, dm_c = sac.policy_mean(actor_cpu, s)
+        torch.testing.assert_close(mu.cpu(), mu_c, rtol=RTOL, atol=ATOL)
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -496,6 +522,51 @@ def test_campaign_on_card_launches_every_kernel_and_resumes_bitwise(
     assert isinstance(CampaignStore.open(root), CampaignStore)
 
 
+def test_scenario_campaign_on_card_matches_cpu(dev, tmp_path):
+    """A 2-cell scenario campaign (SmolVLM at node 3, high-performance,
+    decode and prefill, default SLOs; its cells find designs at this
+    budget) on the card and on the CPU: the same cells and summary keys;
+    each card pick is the argmin of the SLO objective over its own
+    frontier, its TTFT recomputed here on the CPU at rtol 1e-5."""
+    from repro_torch.core import reward as rw
+    from repro_torch.ppa import config_space as cs
+    from repro_torch.ppa.nodes import node_params
+    spec = CampaignSpec(name="scen", workloads=["smolvlm"], nodes=[3],
+                        modes=["high_perf"], episodes=640, lanes=64,
+                        max_envs=64, phases=["decode", "prefill"],
+                        slo=rw.DEFAULT_SLOS)
+    card = run_campaign(str(tmp_path / "card"), spec,
+                        progress=lambda m: None)
+    cpu = run_campaign(str(tmp_path / "cpu"), spec, progress=lambda m: None,
+                       device="cpu")
+    assert sorted(card.manifest["cells"]) == sorted(cpu.manifest["cells"])
+    aux = extract(get_config("smolvlm"), seq_len=2048, batch=3,
+                  phase="prefill")
+    node = torch.as_tensor(an.node_vector(node_params(3)))
+    slo = rw.resolve_slo(rw.DEFAULT_SLOS, "high_perf")
+    picked = 0
+    for cid in card.manifest["cells"]:
+        s_card = card.load_summary(cid)
+        ents = card.load_archive(cid).entries
+        if ents and cpu.load_archive(cid).entries:
+            assert s_card.keys() == cpu.load_summary(cid).keys()
+        if not ents:
+            assert "ttft_ms" not in s_card
+            continue
+        picked += 1
+        assert isinstance(s_card["slo_ok"], bool) and s_card["ttft_ms"] > 0
+        with torch.no_grad():
+            pre = an.evaluate_batch(cs.project(torch.as_tensor(
+                np.stack([e.cfg for e in ents]))),
+                torch.as_tensor(aux.features), node).numpy()
+        ttfts = [rw.ttft_ms(pre[i, an.M_IDX["tok_s"]], 2048, 3)
+                 for i in range(len(ents))]
+        pick = int(np.argmin([rw.slo_objective(e.ppa_score, e.tok_s, t, slo)
+                              for e, t in zip(ents, ttfts)]))
+        assert s_card["ttft_ms"] == pytest.approx(ttfts[pick], rel=1e-5)
+    assert picked >= 1
+
+
 # ------------------------------------------------------------- LM kernels
 # test_kernels.py's tolerances: fp32 with another order of sums, and the
 # rounding of a half-precision output
@@ -568,6 +639,31 @@ def test_flash_attention_kernel_reads_strided_views(dev, layout, dtype):
     err = float((got.float() - want.float()).abs().max())
     assert err < ATTN_TOL[dtype], err
     assert torch.equal(got, flash_attention.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_flash_attention_kernel_at_the_mixtral_window(dev, dtype):
+    """Mixtral 8x7B's prefill of 4,608 tokens, longer than its 4,096-token
+    window: q [1,32,4608,128], k/v [1,8,4608,128], causal, window 4,096
+    (rows past 4,096 mask their oldest keys), at the tolerances above."""
+    g = _gen(dev, 4608)
+    q = torch.randn((1, 32, 4608, 128), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, 8, 4608, 128), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, 8, 4608, 128), generator=g, device=dev).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=4096)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                 window=4096)
+    err = float((got.float() - want.float()).abs().max())
+    assert got.dtype == dtype and err < ATTN_TOL[dtype], err
+    # the window does mask: the last row differs from full causal attention
+    full = flash_attention.flash_attention_plain(q[:, :, -1:], k, v,
+                                                 causal=False)
+    assert float((full.float() - want[:, :, -1:].float()).abs().max()) > \
+        ATTN_TOL[dtype]
 
 
 # the LM prefill's shape (runs c and d), the paper's sequence length, and

@@ -146,6 +146,34 @@ def test_vec_env_reset_and_steps_match_reference(nodes):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("nodes", [[7] * 6, [3, 28, 7, 3]])
+def test_vec_env_exact_partition_mode_matches_reference(nodes):
+    """``partition_mode="exact"``: the host placement per element, its
+    caches and refresh triggers, so the partition stats are the
+    reference's bit for bit and the states agree element by element."""
+    wl = _wl("smolvlm")
+    ref = RefVecDSEEnv(wl, nodes, seed=4, partition_mode="exact",
+                       partition_period=3)
+    env = VecDSEEnv(wl, nodes, seed=4, partition_mode="exact",
+                    partition_period=3, device="cpu")
+    np.testing.assert_allclose(env.reset(), ref.reset(), rtol=RTOL,
+                               atol=ATOL)
+    rng = np.random.default_rng(6)
+    for t in range(12):
+        a_c, a_d = ref_act.random_action_batch(rng, len(nodes))
+        s0, r0, i0 = ref.step(a_c, a_d)
+        s1, r1, i1 = env.step(a_c, a_d)
+        np.testing.assert_array_equal(i1.cfg[:, DISCRETE], i0.cfg[:, DISCRETE])
+        np.testing.assert_array_equal(i1.partition_stats, i0.partition_stats)
+        np.testing.assert_allclose(s1, s0, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(r1, r0, rtol=RTOL, atol=ATOL)
+        if t == 6:
+            np.testing.assert_allclose(env.reset(), ref.reset(), rtol=RTOL,
+                                       atol=ATOL)
+    for p1, p0 in zip(env.partition_results, ref.partition_results):
+        np.testing.assert_array_equal(p1.flops_load, p0.flops_load)
+
+
 def test_vec_env_evaluate_configs_matches_reference():
     wl = _wl("smolvlm")
     ref = RefVecDSEEnv(wl, 7, batch=8, seed=0)
@@ -160,8 +188,8 @@ def test_vec_env_refuses_unported_modes_and_missing_cuda(monkeypatch):
     wl = _wl()
     with pytest.raises(NotImplementedError):
         VecDSEEnv(wl, 3, batch=4, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        VecDSEEnv(wl, 3, batch=4, partition_mode="exact", device="cpu")
+    with pytest.raises(ValueError, match="unknown partition_mode"):
+        VecDSEEnv(wl, 3, batch=4, partition_mode="nope", device="cpu")
     # the default device is cuda, and without a card that is an error,
     # never a silent move to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

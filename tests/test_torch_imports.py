@@ -38,7 +38,11 @@ PORTED = ("repro_torch.checkpoint.manager", "repro_torch.core.fsutil",
           "repro_torch.models.attention", "repro_torch.models.blocks",
           "repro_torch.models.lm", "repro_torch.launch.serve",
           "repro_torch.kernels.flash_attention",
-          "repro_torch.kernels.ssm_scan")
+          "repro_torch.kernels.ssm_scan",
+          *(f"repro_torch.configs.{m}" for m in (
+              "smollm_135m", "qwen1_5_110b", "qwen2_72b", "mixtral_8x7b",
+              "llama4_maverick_400b_a17b", "minicpm3_4b",
+              "llama_3_2_vision_90b", "whisper_medium", "xlstm_1_3b")))
 
 
 def test_port_imports_without_jax_or_reference():

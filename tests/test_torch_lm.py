@@ -28,7 +28,9 @@ from repro_torch.launch.serve import generate
 from repro_torch.models import blocks as blk
 from repro_torch.models import lm
 
-ARCHS = ["llama3.1-8b", "jamba-v0.1-52b", "smolvlm"]
+ARCHS = ["llama3.1-8b", "jamba-v0.1-52b", "smolvlm", "smollm-135m",
+         "qwen1.5-110b", "qwen2-72b", "mixtral-8x7b",
+         "llama4-maverick-400b-a17b"]
 B, S, GEN = 2, 12, 72
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -48,6 +50,17 @@ def _setup(arch, dtype=None, seed=1, **kw):
         ctx = (rng.normal(0, 1, (B, rcfg.n_context_tokens, rcfg.d_model))
                * 0.1).astype(np.float32)
     return rcfg, tcfg, params, tparams, prompts, ctx
+
+
+def _gen(cfg):
+    """Tokens generated for ``cfg``: GEN (one tail flush), or KV_TAIL (no
+    flush) where a sliding window is shorter than the ring tail, since the
+    reference's ``flush_tails`` cannot write a 64-row tail into a shorter
+    window's prefix (the reduced Mixtral's window is 32).  The window still
+    wraps: the prompt and the tokens overrun it."""
+    if 0 < cfg.sliding_window < REF_KV_TAIL:
+        return REF_KV_TAIL
+    return GEN
 
 
 def _ctx(ctx, cfg, pkg):
@@ -121,12 +134,13 @@ def test_forward_and_prefill_caches_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_matches_reference_in_float32(arch):
     rcfg, tcfg, params, tparams, prompts, ctx = _setup(arch, "float32")
-    r_logits, _, r_tokens = _ref_generate(params, rcfg, prompts, GEN,
+    gen = _gen(rcfg)
+    r_logits, _, r_tokens = _ref_generate(params, rcfg, prompts, gen,
                                           _ctx(ctx, rcfg, "ref"))
-    g = generate(tparams, tcfg, torch.as_tensor(prompts).long(), GEN,
+    g = generate(tparams, tcfg, torch.as_tensor(prompts).long(), gen,
                  _ctx(ctx, tcfg, "port"))
     assert _rel(g.prefill_logits, r_logits) < 1e-4
-    assert g.tokens.shape == (B, GEN) and g.tokens.dtype == np.int32
+    assert g.tokens.shape == (B, gen) and g.tokens.dtype == np.int32
     np.testing.assert_array_equal(g.tokens, r_tokens)
     assert np.isfinite(g.tok_s) and g.tok_s > 0
 
@@ -153,15 +167,16 @@ def _port_forced(tparams, tcfg, prompts, forced, ctx):
 def test_decode_in_own_dtype_matches_reference(arch):
     rcfg, tcfg, params, tparams, prompts, ctx = _setup(arch)
     assert rcfg.param_dtype == "bfloat16"
-    forced = np.random.default_rng(5).integers(0, rcfg.vocab, (B, GEN)) \
+    gen = _gen(rcfg)
+    forced = np.random.default_rng(5).integers(0, rcfg.vocab, (B, gen)) \
         .astype(np.int32)
-    r_logits, r_steps, _ = _ref_generate(params, rcfg, prompts, GEN,
+    r_logits, r_steps, _ = _ref_generate(params, rcfg, prompts, gen,
                                          _ctx(ctx, rcfg, "ref"), forced)
     t_logits, t_steps = _port_forced(tparams, tcfg, prompts, forced,
                                      _ctx(ctx, tcfg, "port"))
     assert t_logits.dtype == torch.bfloat16
     assert _rel(t_logits, r_logits) < 5e-2
-    assert len(t_steps) == len(r_steps) == GEN - 1
+    assert len(t_steps) == len(r_steps) == gen - 1
     for i, (t, r) in enumerate(zip(t_steps, r_steps)):
         assert _rel(t, r) < 5e-2, i
 
@@ -177,6 +192,20 @@ def test_config_variants_match_reference(kw):
         "llama3.1-8b", "float32", **kw)
     r_logits, _, r_tokens = _ref_generate(params, rcfg, prompts, 16, None)
     g = generate(tparams, tcfg, torch.as_tensor(prompts).long(), 16)
+    assert _rel(g.prefill_logits, r_logits) < 1e-4
+    np.testing.assert_array_equal(g.tokens, r_tokens)
+
+
+def test_prompt_longer_than_the_window_matches_reference():
+    """Mixtral's serving run on the card prefills a prompt longer than its
+    window; here the reduced Mixtral (window 32) in float32 takes a
+    40-token prompt, so the prefill masks its oldest keys and the decode
+    ring starts full."""
+    rcfg, tcfg, params, tparams, _, _ = _setup("mixtral-8x7b", "float32")
+    prompts = np.random.default_rng(3).integers(
+        0, rcfg.vocab, (B, 40)).astype(np.int32)
+    r_logits, _, r_tokens = _ref_generate(params, rcfg, prompts, 24, None)
+    g = generate(tparams, tcfg, torch.as_tensor(prompts).long(), 24)
     assert _rel(g.prefill_logits, r_logits) < 1e-4
     np.testing.assert_array_equal(g.tokens, r_tokens)
 

@@ -108,11 +108,29 @@ def test_cli_writes_the_four_artifacts(tmp_path, capsys):
     assert np.isfinite(rows[0]["ppa_score"])
     assert "[dse] smolvlm 3nm [sac]" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        dse.main(["--method", "random", "--device", "cpu"])
+        dse.main(["--method", "random", "--engine", "vec", "--device", "cpu"])
+
+
+def test_cli_scalar_engine_writes_the_four_artifacts(tmp_path, capsys):
+    """``--engine scalar`` (once refused) runs the scalar loop, with
+    ``--update-every``, and writes the same four artifacts."""
+    out = str(tmp_path / "dse")
+    dse.main(["--arch", "smolvlm", "--nodes", "3", "--episodes", "48",
+              "--engine", "scalar", "--update-every", "2", "--device", "cpu",
+              "--out", out])
+    tag = "smolvlm__3nm__sac"
+    names = sorted(os.listdir(out))
+    rows = json.load(open(os.path.join(out, "smolvlm__sac_summary.json")))
+    assert rows[0]["node_nm"] == 3 and rows[0]["method"] == "sac"
+    assert rows[0]["episodes"] == 48
+    assert {tag + "_trace.json", tag + "_pareto.json",
+            "smolvlm__sac_summary.json"} <= set(names)
+    assert (tag + "_tcc.json" in names) == (rows[0]["mesh"] != "-")
+    assert "[dse] smolvlm 3nm [sac]" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [["--update-every", "4"], ["--devices", "2"],
-                                   ["--engine", "scalar"]])
+                                   ["--engine", "vec", "--method", "grid"]])
 def test_cli_rejects_what_is_not_ported(flags, capsys):
     """Flags the vec engine does not read are refused, not ignored."""
     with pytest.raises(SystemExit) as exc:

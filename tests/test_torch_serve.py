@@ -15,8 +15,9 @@ from repro_torch.launch import serve
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("arch", ["llama3.1-8b", "jamba-v0.1-52b",
-                                  "smolvlm"])
+@pytest.mark.parametrize("arch", [
+    "llama3.1-8b", "jamba-v0.1-52b", "smolvlm", "smollm-135m", "qwen1.5-110b",
+    "qwen2-72b", "mixtral-8x7b", "llama4-maverick-400b-a17b"])
 def test_serve_cli_runs_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
@@ -65,3 +66,11 @@ def test_serve_cli_refuses_recommend(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smolvlm", "--recommend", "some/run"])
     assert "unrecognized arguments: --recommend" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch,name", [
+    ("minicpm3-4b", "MLA"), ("llama-3.2-vision-90b", "xattn"),
+    ("whisper-medium", "the Whisper encoder"), ("xlstm-1.3b", "mlstm")])
+def test_serve_refuses_the_zoo_parts_not_ported_by_name(arch, name):
+    with pytest.raises(NotImplementedError, match=name):
+        serve.serve(arch, batch=1, prompt_len=4, gen_tokens=2, device="cpu")
