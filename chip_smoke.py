@@ -100,14 +100,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      episodes (run twice: identical), ``--method random`` and ``grid`` for
      4,613; the chosen designs re-evaluated on the CPU, and the random and
      grid baselines' designs equal to a CPU run's;
- 11. one JSON line per kernel, then the result line.
+ 11. devices, telemetry and fleets (:func:`devices_telemetry_fleets`): (a)
+     phase 5's cell with ``devices=1`` (the chunked env path, one chunk),
+     its row and frontier bitwise phase 5's, and ``--devices`` one past the
+     visible cards a one-line ``ap.error``; (b) the same cell traced, with
+     a checkpoint every ``TRACE_CKPT_EVERY`` dispatches: row and frontier
+     bitwise, ``trace.jsonl`` holding ``run_search_cells``,
+     ``first_dispatch``, the ``search`` counters and one ``checkpoint``
+     span a checkpoint, its Chrome export parsed; the cell untraced with
+     ``devices=None`` before (a) and after (b) (held the same way), so the
+     four runs' median dispatch times are read side by side; (c) phase
+     6's paper grid as a W = 2 fleet on the one card (``--campaign
+     --workers 2``), fingerprinting as phase 6's W = 1 campaign, with
+     ``report/workers.json``, ``--status`` from the leases, and each
+     worker's kernel launches read from its final lease (``actor_moe``,
+     ``sumtree`` and ``sumtree_sample`` must launch in every worker);
+     ``nvidia-smi``'s ``utilization.gpu`` sampled over phase 6 and over
+     the fleet; (d) phase 7's grid as a supervised W = 2 fleet with worker
+     1 SIGKILLed after its first checkpoint: re-dealt to a fresh slot,
+     fingerprinting as phase 7's uninterrupted run, the eviction and the
+     re-deal in the manifest's events;
+ 12. one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -155,6 +177,10 @@ KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
                  max_envs=448, seed=0, seq_len=2048, batch=3,
                  checkpoint_every=4)
 SUMTREE_CAP = 100_000
+# phase 11: the traced single cell's checkpoint period (3 checkpoints in
+# its 72 dispatches) and the deadlines of the fleet phases
+TRACE_CKPT_EVERY = 24
+FLEET_TIMEOUT_S = 600
 SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
                   "fused_mlp")
 # the scenario grid: the paper's prefill/decode x dtype axes for Mixtral 8x7B
@@ -404,6 +430,248 @@ def ssm_work(B, S, D, N) -> tuple:
     flops = B * S * D * (6.0 * N + 1)
     return (flops, 4 * (3 * B * S * D + 2 * B * S * N + D * N + B * D * N),
             float(B * S * D * N))
+
+
+class UtilSampler:
+    """``nvidia-smi``'s ``utilization.gpu`` (the share of each sample
+    period in which a kernel ran) every 500 ms while the block runs, from
+    one ``nvidia-smi -lms`` process stopped on exit.  ``mean`` is None when
+    no sample came (no ``nvidia-smi``)."""
+
+    def __enter__(self) -> "UtilSampler":
+        self.samples, self.mean = [], None
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "500"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc is None:
+            return
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.samples = [float(v) for v in out.split()
+                        if v.replace(".", "", 1).isdigit()]
+        if self.samples:
+            self.mean = sum(self.samples) / len(self.samples)
+
+    def describe(self) -> str:
+        if self.mean is None:
+            return "utilization.gpu not measured"
+        return (f"utilization.gpu mean {self.mean:.1f}% over "
+                f"{len(self.samples)} samples of 500 ms")
+
+
+def devices_telemetry_fleets(device, wl, single, grid_path, grid_name,
+                             w1_root, kill_path, kill_name, kill_w1_root,
+                             root, w1_wall, w1_util,
+                             episodes=EPISODES) -> dict:
+    """Phase 11 (see the module docstring) on ``device``: ``single`` is
+    phase 5's (row, SearchResult) of ``wl``'s cell, ``grid_path`` and
+    ``w1_root`` phase 6's grid file and run directory (its wall ``w1_wall``
+    and ``UtilSampler`` ``w1_util``), ``kill_path`` and ``kill_w1_root``
+    phase 7's; fleets and traces go under ``root``.  Returns each path's
+    launch counts (the fleets' summed from their workers' final leases).
+    ``device="cpu"`` with cut budgets rehearses it without a card (no
+    launch is then required)."""
+    import shutil
+
+    from repro_torch.campaign import CampaignSpec, CampaignStore
+    from repro_torch.campaign import fingerprint as campaign_fingerprint
+    from repro_torch.campaign.distrib import worker_root, worker_roots
+    from repro_torch.campaign.store import read_lease
+    from repro_torch.core.search import SearchConfig, run_search_cells
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dse
+    from repro_torch.launch import fleet as fleet_mod
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.metrics import snapshot_value
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    row0, res0 = single
+    # rows as JSON, so that a NaN (no feasible design) equals itself
+    strip = lambda row: json.dumps({k: v for k, v in row.items()
+                                    if k != "wall_s"}, sort_keys=True)
+    entries = lambda r: json.dumps([e.to_dict() for e in r.archive.entries])
+    median_ms = lambda r: 1e3 * float(np.median(r.dispatch_s))
+    paths = {}
+
+    def held(label, row, res):
+        if strip(row) != strip(row0) or entries(res) != entries(res0) \
+                or [t.__dict__ for t in res.trace] != [
+                    t.__dict__ for t in res0.trace]:
+            fail(f"{label}: the row or frontier differs from phase 5's")
+
+    def single_run(label, devices=None):
+        """Phase 5's cell through ``dse.run``, held against phase 5's."""
+        res_l = []
+        ops.reset_launch_counts()
+        sync()
+        t = time.time()
+        row, = dse.run("llama3.1-8b", nodes=[NODE],
+                       mode="high-performance", episodes=episodes,
+                       method="sac", out_dir=os.path.join(root, label),
+                       seed=SEED, seq_len=2048, batch=3, engine="vec",
+                       n_envs=N_ENVS, gate_threshold=GATE_THRESHOLD,
+                       devices=devices, device=device, results=res_l)
+        sync()
+        wall, counts = time.time() - t, ops.launch_counts()
+        held(label, row, res_l[0])
+        return res_l[0], wall, counts
+
+    # untraced devices=None runs before (a) and after (b), so that the
+    # dispatch times of (a) and (b) are read beside runs of the same
+    # process and moment, not only phase 5's
+    plain_a, _, _ = single_run("plain-before")
+    # (a) devices=1: the chunked env path with one chunk
+    res_d, wall_a, paths["devices"] = single_run("devices=1", devices=1)
+    log(f"devices=1: row and frontier ({len(res0.archive)} entries) "
+        f"bitwise phase 5's; wall {wall_a:.3f} s, median dispatch "
+        f"{median_ms(res_d):.3f} ms (plain before it "
+        f"{median_ms(plain_a):.3f}, phase 5 {median_ms(res0):.3f}); "
+        f"launches {json.dumps(paths['devices'])}")
+    n_bad = torch.cuda.device_count() + 1
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dse", "--devices",
+         str(n_bad), "--device", "cuda"], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+    err = out.stderr.strip().splitlines()
+    if out.returncode != 2 or "Traceback" in out.stderr or not err \
+            or f"--devices {n_bad}:" not in err[-1]:
+        fail(f"--devices {n_bad} on {n_bad - 1} card(s): exit "
+             f"{out.returncode}, stderr {out.stderr[-400:]!r}")
+    log(f"--devices {n_bad} on {n_bad - 1} card(s): exit 2, {err[-1]!r}")
+
+    # (b) the same cell traced, with checkpoints
+    tdir = os.path.join(root, "traced")
+    tracer = obs_trace.Tracer(os.path.join(tdir, obs_trace.TRACE_NAME),
+                              proc="chip_smoke")
+    obs_trace.install_tracer(tracer)
+    ops.reset_launch_counts()
+    sync()
+    t = time.time()
+    try:
+        res_t = run_search_cells(
+            wl, [NODE], high_perf=True, search=SearchConfig(
+                episodes=episodes, seed=SEED, gate_threshold=GATE_THRESHOLD),
+            lanes_per_cell=N_ENVS, checkpoint_dir=os.path.join(tdir, "ckpt"),
+            checkpoint_every=TRACE_CKPT_EVERY, device=device)[0]
+        sync()
+    finally:
+        obs_trace.install_tracer(None)
+        tracer.close()
+    wall_b, paths["traced"] = time.time() - t, ops.launch_counts()
+    held("traced", dse.result_row(res_t), res_t)
+    recs = obs_trace.read_trace(os.path.join(tdir, obs_trace.TRACE_NAME))
+    names = [r.get("name") for r in recs]
+    steps = [r["args"]["step"] for r in recs if r.get("name") == "checkpoint"]
+    want_steps = list(range(TRACE_CKPT_EVERY, len(res_t.dispatch_s),
+                            TRACE_CKPT_EVERY))
+    n_counters = sum(r.get("name") == "search" and r.get("ph") == "C"
+                     for r in recs)
+    if names.count("run_search_cells") != 1 \
+            or names.count("first_dispatch") != 1 or not n_counters \
+            or steps != want_steps:
+        fail(f"traced: trace holds run_search_cells x"
+             f"{names.count('run_search_cells')}, first_dispatch x"
+             f"{names.count('first_dispatch')}, {n_counters} search "
+             f"counters, checkpoint steps {steps} (want {want_steps})")
+    doc = json.load(open(obs_export.export_run(tdir)))
+    plain_b, _, _ = single_run("plain-after")
+    log(f"traced: row and frontier bitwise phase 5's; trace.jsonl "
+        f"{len(recs)} records (run_search_cells 1, first_dispatch 1, "
+        f"{n_counters} search counters, checkpoints at {steps}); Chrome "
+        f"export {len(doc['traceEvents'])} events; wall {wall_b:.3f} s")
+    log(f"median dispatch (ms): untraced before {median_ms(plain_a):.3f}, "
+        f"devices=1 {median_ms(res_d):.3f}, traced {median_ms(res_t):.3f}, "
+        f"untraced after {median_ms(plain_b):.3f}; phase 5 "
+        f"{median_ms(res0):.3f}")
+
+    def lease_counts(froot):
+        """{worker dir: {kernel: launches}} from the final leases."""
+        return {os.path.basename(w): {
+            k: int(snapshot_value((read_lease(w) or {}).get("metrics"),
+                                  "counters", "kernel_launches_total",
+                                  {"kernel": k}, default=0))
+            for k in ops.KERNELS} for w in worker_roots(froot)}
+
+    def summed(per_worker):
+        return {k: sum(c[k] for c in per_worker.values())
+                for k in ops.KERNELS}
+
+    # (c) the paper grid as a W=2 fleet on the one card
+    froot = os.path.join(root, "fleet")
+    with UtilSampler() as util:
+        t = time.time()
+        dse.main(["--campaign", grid_path, "--workers", "2",
+                  "--campaign-root", froot, "--device", device])
+        fleet_wall = time.time() - t
+    froot = os.path.join(froot, grid_name)
+    fstore = CampaignStore.open(froot)
+    if not fstore.all_done() or campaign_fingerprint(fstore) != \
+            campaign_fingerprint(CampaignStore.open(w1_root)):
+        fail("fleet: the W=2 fleet's fingerprint differs from phase 6's "
+             "W=1 campaign")
+    rep = json.load(open(os.path.join(froot, "report", "workers.json")))
+    per_worker = lease_counts(froot)
+    paths["fleet"] = summed(per_worker)
+    log(f"fleet: W=2 fingerprint == phase 6's W=1 over "
+        f"{len(fstore.manifest['cells'])} cells; wall W=2 "
+        f"{fleet_wall:.3f} s, W=1 (phase 6) {w1_wall:.3f} s; "
+        f"{util.describe()} (W=1: {w1_util.describe()})")
+    for r in rep["workers"]:
+        log(f"fleet workers.json: {json.dumps(r)}")
+    for line in fleet_mod.render_status(
+            fleet_mod.fleet_status(froot)).splitlines():
+        log(f"fleet --status: {line}")
+    for w, c in sorted(per_worker.items()):
+        log(f"fleet {w} launches: {json.dumps(c)}")
+        missing = [k for k in ("actor_moe", "sumtree", "sumtree_sample")
+                   if c[k] <= 0]
+        if on_card and missing:
+            fail(f"fleet {w}: {missing} never launched")
+    if len(per_worker) != 2 or rep["events"]:
+        fail(f"fleet: {len(per_worker)} workers, events {rep['events']}")
+
+    # (d) chaos: SIGKILL worker 1 after its first checkpoint
+    croot = os.path.join(root, "chaos", kill_name)
+    h = fleet_mod.launch_fleet(croot, CampaignSpec.from_file(kill_path),
+                               workers=2, progress=log, device=device)
+    ckpts = os.path.join(worker_root(croot, 1), "ckpt", "*", "step_*")
+    deadline = time.time() + FLEET_TIMEOUT_S
+    while time.time() < deadline and not glob.glob(ckpts) \
+            and h.procs[1].poll() is None:
+        time.sleep(0.02)
+    if h.procs[1].poll() is not None or not glob.glob(ckpts):
+        fail("chaos: worker 1 wrote no checkpoint before it ended")
+    killed_at = sorted(os.path.basename(p) for p in glob.glob(ckpts))
+    h.kill(1, signal.SIGKILL)
+    cstore = h.wait(timeout=FLEET_TIMEOUT_S)
+    events = cstore.manifest["fleet"]["events"]
+    evict = [e for e in events if e["kind"] == "evict"
+             and e["worker"] == 1]
+    redeal = [e for e in events if e["kind"] == "redeal"
+              and e["from_worker"] == 1]
+    if not (evict and redeal) or redeal[0]["to_worker"] in (0, 1):
+        fail(f"chaos: events {events}")
+    if campaign_fingerprint(cstore) != campaign_fingerprint(
+            CampaignStore.open(kill_w1_root)):
+        fail("chaos: the healed fleet's fingerprint differs from phase "
+             "7's uninterrupted run")
+    paths["chaos"] = summed(lease_counts(croot))
+    log(f"chaos: worker 1 SIGKILLed at {killed_at}; evicted "
+        f"({evict[0]['reason']}), batch(es) {redeal[0]['batches']} "
+        f"re-dealt to slot {redeal[0]['to_worker']}; fingerprint == phase "
+        f"7's uninterrupted run; launches {json.dumps(paths['chaos'])}")
+    return paths
 
 
 def main() -> None:
@@ -915,6 +1183,7 @@ def main() -> None:
                    results=results)
     torch.cuda.synchronize()
     wall, counts, res = time.time() - t, ops.launch_counts(), results[0]
+    single = (row, res)           # held by phase 11
     disp = np.asarray(res.dispatch_s)
     log(f"main path: llama3.1-8b decode, node {NODE} nm, {res.episodes_run} "
         f"env-steps in {len(disp)} dispatches of {N_ENVS} envs, "
@@ -1093,14 +1362,15 @@ def main() -> None:
                          "disagree with the plain CPU evaluator")
         return grid_disp
 
-    store, batch_results, camp_wall, camp_counts = drive_campaign(
-        GRID, "paper_grid.json")
+    with UtilSampler() as camp_util:
+        store, batch_results, camp_wall, camp_counts = drive_campaign(
+            GRID, "paper_grid.json")
     if not store.all_done() or len(store.summaries()) != 28 \
             or len(batch_results) != 4:
         fail(f"campaign: {len(store.summaries())} of 28 cells done in "
              f"{len(batch_results)} batches")
     log(f"campaign: 28 cells in 4 batches, wall {camp_wall:.3f} s; "
-        f"launches {json.dumps(camp_counts)}")
+        f"{camp_util.describe()}; launches {json.dumps(camp_counts)}")
     for name in ("sumtree", "sumtree_sample", "fused_mlp"):
         if camp_counts[name] <= 0:
             fail(f"kernel {name} was never launched on the campaign path")
@@ -1482,7 +1752,14 @@ def main() -> None:
         "re-evaluated on the CPU agrees (rtol 1e-5); random and grid "
         "baselines' frontiers and picks equal a CPU run's")
 
-    # ---- 11. results ------------------------------------------------------
+    # ---- 11. devices, telemetry and fleets ----------------------------------
+    fleet_counts = devices_telemetry_fleets(
+        "cuda", wl, single, os.path.join(CAMPAIGN_ROOT, "paper_grid.json"),
+        GRID["name"], os.path.join(CAMPAIGN_ROOT, GRID["name"]), kill_path,
+        KILL_GRID["name"], os.path.join(kill_roots[0], KILL_GRID["name"]),
+        os.path.join(CAMPAIGN_ROOT, "phase11"), camp_wall, camp_util)
+
+    # ---- 12. results ------------------------------------------------------
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
     # batch's (B = 448; 256 samples per SAC update) with the campaign's;
@@ -1517,7 +1794,7 @@ def main() -> None:
             launches_by_path={path: c.get(name, 0) for path, c in (
                 ("single", counts), ("campaign", camp_counts),
                 ("scenario", scen_counts), ("scalar", scalar["sac"][1]),
-                ("lm", lm_counts))}))
+                ("lm", lm_counts), *fleet_counts.items())}))
     print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

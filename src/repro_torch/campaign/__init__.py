@@ -10,18 +10,26 @@ multi-workload x multi-node design-space-exploration sweeps on the batched
 * :mod:`repro_torch.campaign.store`   — the reference's JSONL run directory
   layout, manifest and dominance-filtered archive merging.
 * :mod:`repro_torch.campaign.report`  — per-cell best-PPA, cross-node
-  adaptation and scaling tables.
+  adaptation and scaling tables and, for fleets, the per-worker
+  utilization table.
+* :mod:`repro_torch.campaign.distrib` — multi-worker fleets: deterministic
+  batch sharding, shared-nothing worker loops under ``worker-<i>/`` with
+  liveness leases, and the crash-safe reconciler that merges worker run
+  directories into the top-level frontier.
 
-Fleets, cross-campaign transfer and telemetry are not ported yet.
+Cross-campaign transfer is not ported yet.
 
-CLI: ``python -m repro_torch.launch.dse --campaign grid.json`` /
-``--resume <run-dir>``.
+CLI: ``python -m repro_torch.launch.dse --campaign grid.json [--workers
+W]`` / ``--resume <run-dir>``.
 """
 from repro_torch.campaign.planner import Cell, CellBatch, CampaignSpec, plan
 from repro_torch.campaign.report import write_reports, write_scaling_report
 from repro_torch.campaign.runner import run_campaign
 from repro_torch.campaign.store import CampaignStore, merge_runs
+from repro_torch.campaign.distrib import (fingerprint, reconcile,
+                                          run_worker, shard_batches)
 
 __all__ = ["Cell", "CellBatch", "CampaignSpec", "plan", "run_campaign",
            "CampaignStore", "merge_runs", "write_reports",
-           "write_scaling_report"]
+           "write_scaling_report", "fingerprint", "reconcile", "run_worker",
+           "shard_batches"]

@@ -10,9 +10,9 @@ a batch shares one env step and one SAC policy / PER buffer (see
 The spec keeps every field of the reference's, so either package reads the
 other's manifests.  Scenario axes (``dtypes``, ``phases``) multiply the
 grid, with the default scenario's batches first; ``slo`` turns on
-SLO-aware selection.  A spec that asks for what is not ported yet
-(``transfer_from``, ``devices``, ``hosts``, ``priorities``) is refused with
-an error naming it.
+SLO-aware selection; ``devices`` and ``hosts`` are validated as the
+reference validates them.  A spec that asks for what is not ported yet
+(``transfer_from``, ``priorities``) is refused with an error naming it.
 """
 from __future__ import annotations
 
@@ -91,8 +91,6 @@ class CellBatch:
 # spec fields whose non-default values need a part of the system that is
 # not ported yet, and the part each one needs
 _NOT_PORTED = {
-    "hosts": "fleets (repro.campaign.distrib, launch/fleet)",
-    "devices": "sharding over several cards",
     "transfer_from": "cross-campaign transfer (campaign/transfer)",
     "priorities": "cost-model batch priorities (campaign/transfer)",
 }
@@ -120,7 +118,14 @@ class CampaignSpec:
     surrogate_gate: bool = True
     screen_k: int = 4
     gate_threshold: float = TAU_SUR_DEFAULT
+    # fleet launch hint: hosts for the remote worker launcher (slot i runs
+    # on hosts[i % len(hosts)]).  Purely a launch concern — two specs that
+    # differ only in hosts search identically.
     hosts: Optional[List[str]] = None
+    # chunk each dispatch's env batch over this many devices (None = the
+    # plain single-device step).  Purely an execution-layout concern: the
+    # chunked step is bitwise the unchunked one, so two specs that differ
+    # only in devices search identically.
     devices: Optional[int] = None
     transfer_from: Optional[List[str]] = None
     priorities: Optional[Dict[str, float]] = None
@@ -155,6 +160,13 @@ class CampaignSpec:
         if self.gate_threshold < 0:
             raise ValueError(f"gate_threshold must be >= 0 "
                              f"(got {self.gate_threshold})")
+        if self.hosts is not None and (
+                not self.hosts or any(not isinstance(h, str) or not h.strip()
+                                      for h in self.hosts)):
+            raise ValueError(f"hosts must be a non-empty list of host "
+                             f"names (got {self.hosts!r})")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(f"devices must be >= 1 (got {self.devices})")
         bad_dt = [d for d in self.dtypes if d not in DTYPES]
         if bad_dt or not self.dtypes:
             raise ValueError(f"unknown dtypes {bad_dt or self.dtypes}; "

@@ -1,5 +1,5 @@
 """Campaign reporting (port of ``repro.campaign.report``): per-cell
-best-PPA and cross-node adaptation tables.
+best-PPA, cross-node adaptation, scaling and fleet worker tables.
 
 ``write_reports`` renders, each as JSON + markdown under
 ``<run-dir>/report/``, byte for byte as the reference does:
@@ -11,15 +11,20 @@ best-PPA and cross-node adaptation tables.
 * ``scaling``    — for every (workload, mode) with >= 2 completed nodes, a
   log-log linear fit of the selected design's PPA vs process node, with
   the per-cell frontier data the fit was read from.
+* ``workers``    — fleet campaigns only: per-worker utilization (cells,
+  episodes, busy seconds, busy/fleet-wall percentage) from the stats the
+  reconciler folds into the manifest's ``fleet`` block, plus the
+  supervision event log (evictions, mid-run re-deals, stale-leg
+  closures).
 
-The fleet workers table comes with the fleets, the serving-side index
-report with the recommend server.
+The serving-side index report comes with the recommend server.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +61,7 @@ CELL_COLS = ("cell_id", "mesh", "fetch", "vlen", "wmem_kb", "dmem_kb",
              "evaluated", "wall_s")
 ADAPT_COLS = ("node_nm", "mesh", "fetch", "vlen", "wmem_kb", "dmem_kb",
               "freq_mhz", "tok_s", "power_mw", "area_mm2", "ppa_score")
+WORKER_COLS = ("worker", "cells", "episodes", "busy_s", "util_pct")
 
 
 def _fmt(v) -> str:
@@ -101,6 +107,66 @@ def adaptation_tables(store) -> Dict[str, List[Dict]]:
     for rows in out.values():
         rows.sort(key=lambda r: r["node_nm"] or 0)
     return out
+
+
+def format_event(ev: Dict) -> str:
+    """One human-readable markdown line per supervision event.
+
+    The raw event dicts carry kind-specific fields (``pending`` on an
+    evict, ``batches`` on a re-deal, epoch-float ``ts``); a generic
+    column table rendered them as raw dicts with epoch timestamps.  Here
+    each kind gets a sentence with a wall-clock timestamp and the
+    affected batch ids spelled out; unknown kinds degrade to sorted
+    ``k=v`` pairs so nothing is silently dropped."""
+    ts = time.strftime("%Y-%m-%d %H:%M:%S",
+                       time.localtime(float(ev.get("ts") or 0.0)))
+    kind = ev.get("kind", "?")
+
+    def _ids(key: str) -> str:
+        v = ev.get(key) or []
+        return ", ".join(f"`{b}`" for b in v) if isinstance(v, list) \
+            else f"`{v}`"
+
+    if kind == "evict":
+        pend = (f"pending batch(es) {_ids('pending')}" if ev.get("pending")
+                else "no pending batches")
+        det = (f"worker {ev.get('worker')} evicted "
+               f"({ev.get('reason')}, returncode="
+               f"{ev.get('returncode')}); {pend}")
+    elif kind == "redeal":
+        det = (f"batch(es) {_ids('batches')} re-dealt from worker "
+               f"{ev.get('from_worker')} to fresh slot "
+               f"{ev.get('to_worker')} ({ev.get('reason')})")
+    elif kind == "gave-up":
+        det = (f"gave up on batch(es) {_ids('batches')} from worker "
+               f"{ev.get('worker')} after {ev.get('max_redeals')} "
+               "re-deal(s); left pending for --resume")
+    elif kind == "stale-leg-closed":
+        det = (f"stale wall-clock leg closed at {_fmt(ev.get('wall_s'))}s "
+               "(every lease older than the TTL)")
+    else:
+        extra = {k: v for k, v in ev.items() if k not in ("ts", "kind")}
+        det = ", ".join(f"{k}={v}" for k, v in sorted(extra.items()))
+    return f"- `{ts}` **{kind}** — {det}"
+
+
+def worker_rows(store) -> List[Dict]:
+    """Per-worker utilization of a fleet campaign ([] for single-process
+    runs): cells/episodes completed, busy seconds, and busy time as a
+    percentage of the fleet's wall clock (how evenly the deal kept the
+    workers fed)."""
+    fleet = store.manifest.get("fleet") or {}
+    stats = fleet.get("worker_stats") or {}
+    wall = float(fleet.get("wall_s") or 0.0)
+    rows = []
+    for name in sorted(stats):
+        s = stats[name]
+        busy = float(s.get("busy_s") or 0.0)
+        rows.append(dict(worker=name, cells=s.get("cells"),
+                         episodes=s.get("episodes"), busy_s=round(busy, 2),
+                         util_pct=(round(100.0 * busy / wall, 1)
+                                   if wall > 0 else None)))
+    return rows
 
 
 SCALING_METRICS = ("power_mw", "perf_gops", "area_mm2", "tok_s")
@@ -181,8 +247,8 @@ def write_scaling_report(store, out_dir: Optional[str] = None
 
 
 def write_reports(store, out_dir: Optional[str] = None) -> Dict[str, str]:
-    """Emit cells + adaptation + scaling tables as JSON and markdown;
-    returns paths."""
+    """Emit cells + adaptation + scaling (+ fleet workers) tables as JSON
+    and markdown; returns paths."""
     out_dir = out_dir or os.path.join(store.root, "report")
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
@@ -210,4 +276,23 @@ def write_reports(store, out_dir: Optional[str] = None) -> Dict[str, str]:
             f.write(markdown_table(rws, ADAPT_COLS))
 
     paths.update(write_scaling_report(store, out_dir))
+
+    workers = worker_rows(store)
+    if workers:
+        fleet = store.manifest.get("fleet") or {}
+        events = list(fleet.get("events") or [])
+        paths["workers_json"] = os.path.join(out_dir, "workers.json")
+        with open(paths["workers_json"], "w") as f:
+            json.dump(dict(workers=workers, events=events), f, indent=1,
+                      allow_nan=False)
+        paths["workers_md"] = os.path.join(out_dir, "workers.md")
+        wall = fleet.get("wall_s")
+        with open(paths["workers_md"], "w") as f:
+            f.write(f"# Campaign `{store.manifest['name']}` — per-worker "
+                    f"utilization ({len(workers)} workers, "
+                    f"fleet wall {_fmt(wall)}s)\n\n")
+            f.write(markdown_table(workers, WORKER_COLS))
+            if events:
+                f.write(f"\n## Supervision events ({len(events)})\n\n")
+                f.write("\n".join(format_event(e) for e in events) + "\n")
     return paths

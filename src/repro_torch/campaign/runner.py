@@ -1,5 +1,5 @@
 """Campaign runner: executes planned cell batches with resumable progress
-(port of ``repro.campaign.runner``; telemetry is not ported yet).
+(port of ``repro.campaign.runner``).
 
 Each :class:`~repro_torch.campaign.planner.CellBatch` is one mixed-node
 ``run_search_cells`` invocation (shared env step + shared SAC/PER learner
@@ -13,9 +13,16 @@ durable at two granularities:
   checkpointed every ``spec.checkpoint_every`` dispatches under
   ``<run-dir>/ckpt/<batch_id>/``; a killed campaign resumes the batch from
   the last completed chunk, bit-for-bit.
+
+Telemetry: ``run_batch``/``complete_cell``/``write_reports`` spans against
+the installed tracer (a single-process campaign installs its own at
+``<run-dir>/trace.jsonl``; a fleet worker keeps the one it installed), and
+one structured log record per batch and completed cell when the caller
+passes a bound logger.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -28,6 +35,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.reward import resolve_slo
 from repro_torch.core.search import (SearchConfig, SearchResult,
                                      run_search_cells)
+from repro_torch.obs import log as obs_log
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ppa import config_space as cs
 from repro_torch.ppa.analytic import M_IDX
 from repro_torch.workload.extract import extract
@@ -84,6 +93,7 @@ def run_batch(store: CampaignStore, batch: CellBatch, workload: Workload,
         search=sc, lanes_per_cell=spec.lanes,
         checkpoint_dir=store.ckpt_dir(batch.batch_id),
         checkpoint_every=spec.checkpoint_every, resume=True,
+        devices=spec.devices,
         save_weights_to=store.weights_dir(batch.batch_id),
         scenario=batch_scenario(batch, spec), device=device)
 
@@ -113,10 +123,15 @@ def _resumed_spec(store: CampaignStore, root: str,
 def execute_batch(store: CampaignStore, batch: CellBatch,
                   spec: CampaignSpec,
                   progress: Callable[[str], None] = lambda m: None,
-                  device="cuda") -> int:
+                  device="cuda",
+                  log: Optional[obs_log.JsonlLogger] = None) -> int:
     """Run one batch to completion against ``store``: resume any
-    checkpoint, persist every cell, clear the batch checkpoint.  Returns
-    the number of cells completed (0 if none were pending)."""
+    checkpoint, persist every cell, clear the batch checkpoint.  Shared by
+    the single-process campaign loop and fleet workers
+    (``repro_torch.campaign.distrib.run_worker``).  Returns the number of
+    cells completed (0 if none were pending).  ``log`` (a bound
+    :class:`~repro_torch.obs.log.JsonlLogger`) receives one structured
+    record per completed cell, carrying the caller's context."""
     pending = store.pending_cells(batch)
     if not pending:
         # a kill between the batch's last complete_cell and clear_ckpt
@@ -127,23 +142,40 @@ def execute_batch(store: CampaignStore, batch: CellBatch,
                  batch=spec.batch, phase=batch.phase, dtype=batch.dtype)
     progress(f"[campaign] {batch.batch_id}: {len(batch.node_nms)} cells "
              f"x {spec.lanes} lanes, {spec.episodes} ep/cell")
+    if log is not None:
+        log.info("batch started", cells=len(batch.node_nms),
+                 lanes=spec.lanes, episodes=spec.episodes)
     done_before = {c.cell_id for c in batch.cells if c not in pending}
     store.mark_running(batch)
-    results = run_batch(store, batch, wl, spec, device=device)
+    with obs_trace.span("run_batch", cat="campaign",
+                        batch=batch.batch_id,
+                        cells=len(batch.node_nms)) as sp:
+        results = run_batch(store, batch, wl, spec, device=device)
+        sp.set(wall_s=round(sum(r.wall_s for r in results), 3))
     completed = 0
     for cell, res in zip(batch.cells, results):
         if cell.cell_id in done_before:
             # a re-run of a partially-completed batch reproduces the done
-            # cell bit-for-bit; skipping the re-append avoids duplicates
+            # cell bit-for-bit; skipping the re-append avoids duplicate
+            # records and keeps the manifest's provenance (fleet worker
+            # tag) intact
             continue
         summary = cell_summary(cell, res)
-        store.complete_cell(cell, summary, res.archive.entries)
+        with obs_trace.span("complete_cell", cat="campaign",
+                            cell=cell.cell_id):
+            store.complete_cell(cell, summary, res.archive.entries)
         completed += 1
         score = summary["ppa_score"]
         progress(f"[campaign]   {cell.cell_id}: score="
                  f"{'-' if score is None else format(score, '.4f')} "
                  f"frontier={summary['frontier']}")
+        if log is not None:
+            log.bind(cell_id=cell.cell_id).info(
+                "cell done", score=score, frontier=summary["frontier"],
+                episodes=summary["episodes"])
     store.clear_ckpt(batch.batch_id)
+    if log is not None:
+        log.info("batch done", completed=completed)
     return completed
 
 
@@ -161,8 +193,10 @@ def run_campaign(root: str, spec: Optional[CampaignSpec] = None, *,
         store = CampaignStore.open(root)
         if store.manifest.get("fleet", {}).get("assignments"):
             raise ValueError(
-                f"{root} is a fleet campaign with undealt work; fleets are "
-                "not ported to repro_torch yet")
+                f"{root} is a fleet campaign with undealt work; resume it "
+                "at fleet scope (repro_torch.launch.dse --resume, or "
+                "repro_torch.launch.fleet.launch_fleet(resume=True)) so "
+                "worker results are reconciled and checkpoints relocated")
         spec = _resumed_spec(store, root, spec)
     else:
         if spec is None:
@@ -170,9 +204,24 @@ def run_campaign(root: str, spec: Optional[CampaignSpec] = None, *,
         store = CampaignStore.create(root, spec)
     t0 = time.time()
     n_done = 0
-    for batch in plan_cached(spec):
-        n_done += execute_batch(store, batch, spec, progress, device=device)
-    write_reports(store)
+    # single-process campaigns get their own trace at <root>/trace.jsonl;
+    # inside a fleet worker a tracer is already installed and kept
+    own_tracer = None
+    if obs_trace.current_tracer() is None \
+            and not obs_trace.tracing_disabled():
+        own_tracer = obs_trace.Tracer(
+            os.path.join(root, obs_trace.TRACE_NAME), proc="campaign")
+        obs_trace.install_tracer(own_tracer)
+    try:
+        for batch in plan_cached(spec):
+            n_done += execute_batch(store, batch, spec, progress,
+                                    device=device)
+        with obs_trace.span("write_reports", cat="campaign"):
+            write_reports(store)
+    finally:
+        if own_tracer is not None:
+            obs_trace.install_tracer(None)
+            own_tracer.close()
     progress(f"[campaign] {store.manifest['name']}: "
              f"{n_done} cells run, all_done={store.all_done()}, "
              f"{time.time() - t0:.1f}s -> {root}")
@@ -196,5 +245,6 @@ def run_cells_sequential(spec: CampaignSpec,
                               gate_threshold=spec.gate_threshold)
             out.extend(run_search_cells(
                 wl, [node], high_perf=batch.mode == "high_perf",
-                search=sc, lanes_per_cell=spec.lanes, device=device))
+                search=sc, lanes_per_cell=spec.lanes,
+                devices=spec.devices, device=device))
     return out

@@ -1,6 +1,5 @@
-"""Campaign persistence: JSONL run directory + manifest + archive merge
-(port of ``repro.campaign.store``; the fleet lease helpers come with the
-fleets).
+"""Campaign persistence: JSONL run directory + manifest + archive merge,
+and the fleet workers' liveness leases (port of ``repro.campaign.store``).
 
 Layout of one campaign run directory (``experiments/campaigns/<name>/``),
 the reference's, so each package reads the other's run directories:
@@ -13,6 +12,7 @@ the reference's, so each package reads the other's run directories:
                              (cleared when the batch completes)
     model/weights/<batch_id>/  final SAC + surrogate weights per batch
     report/                  per-cell + cross-node adaptation tables
+    worker-<i>/lease.json    a fleet worker's liveness lease
 
 The manifest is the source of truth for resume: a cell is re-run iff its
 status is not ``done``.  All manifest writes are atomic (tmp + fsync +
@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import socket
 import subprocess
 import time
 from typing import Dict, List, Optional
@@ -36,6 +37,12 @@ from repro_torch.core.pareto import ArchiveEntry, ParetoArchive
 STATUS_PENDING = "pending"
 STATUS_RUNNING = "running"
 STATUS_DONE = "done"
+
+# liveness lease defaults (fleet workers; see write_lease below).  A
+# worker refreshes its lease every ttl/4, so one missed refresh never
+# looks like death; the supervisor treats ``now - ts > ttl`` as expired.
+LEASE_NAME = "lease.json"
+DEFAULT_LEASE_TTL_S = 15.0
 
 
 def _git_sha() -> str:
@@ -51,6 +58,67 @@ def _git_sha() -> str:
 # the atomic tmp-write -> fsync -> rename -> dir-fsync sequence lives in
 # core.fsutil so the checkpoint manager shares it
 _atomic_write_json = fsutil.atomic_write_json
+
+
+# ----------------------------------------------------------------- leases
+def lease_path(worker_dir: str) -> str:
+    return os.path.join(worker_dir, LEASE_NAME)
+
+
+def write_lease(worker_dir: str, *, worker: int, batch: Optional[str],
+                ttl_s: float, done: bool = False,
+                metrics: Optional[Dict] = None) -> Dict:
+    """Refresh worker ``worker``'s liveness lease under its run directory.
+
+    The lease is the fleet's only liveness channel that crosses hosts: it
+    lives in the shared run directory, so a supervisor anywhere on the
+    shared filesystem can observe (pid, host, ts, current batch) without
+    a process handle.  Written atomically+durably so a reader never sees
+    a torn lease and a power-lost refresh leaves the previous one.
+
+    ``metrics`` piggybacks a JSON-safe telemetry snapshot
+    (``repro_torch.obs.metrics.MetricsRegistry.snapshot``) on the heartbeat —
+    the live fleet view (``repro_torch.launch.fleet --status``) is aggregated
+    from leases alone, no extra files or sockets."""
+    lease = dict(worker=int(worker), pid=os.getpid(),
+                 host=socket.gethostname(), ts=time.time(),
+                 batch=batch, ttl_s=float(ttl_s), done=bool(done))
+    if metrics is not None:
+        lease["metrics"] = metrics
+    fsutil.atomic_write_json(lease_path(worker_dir), lease)
+    return lease
+
+
+def read_lease(worker_dir: str) -> Optional[Dict]:
+    """The worker's last lease, or None if it never wrote one (a torn or
+    unreadable lease also reads as None — the refresh is atomic, so that
+    only happens for pre-lease worker dirs)."""
+    try:
+        with open(lease_path(worker_dir)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def lease_expired(lease: Optional[Dict], *, now: Optional[float] = None,
+                  ttl_s: Optional[float] = None) -> bool:
+    """True when the lease-holder must be presumed dead: no refresh within
+    the TTL (the lease's own, unless ``ttl_s`` overrides).  A missing
+    lease is NOT expired — the worker may still be booting; callers gate
+    that case on spawn time.  A ``done`` lease never expires: the worker
+    finished and stopped refreshing on purpose."""
+    if lease is None or lease.get("done"):
+        return False
+    # explicit None checks: `lease.get("ttl_s") or DEFAULT` would silently
+    # promote an explicit-but-falsy ttl (0 / 0.0, e.g. a sub-second chaos
+    # harness rounding down) to the 15 s default, so the holder looked
+    # alive for 15 s after its last beat instead of expiring immediately
+    lease_ttl = lease.get("ttl_s")
+    ttl = float(ttl_s if ttl_s is not None
+                else lease_ttl if lease_ttl is not None
+                else DEFAULT_LEASE_TTL_S)
+    return (now if now is not None else time.time()) \
+        - float(lease.get("ts") or 0.0) > ttl
 
 
 def _read_jsonl(path: str) -> List[Dict]:

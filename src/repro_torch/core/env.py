@@ -16,7 +16,9 @@ closed-form ``stats_vec`` ("analytic") or the host placement per element
 ("exact", the scalar env's state bit for bit).  Reset noise comes from
 numpy streams (``seed``, or ``seed + lane``) consumed exactly as the
 reference consumes them, so reset configurations are bitwise the
-reference's.  Not ported yet: ``devices`` sharding.
+reference's.  ``devices`` splits the batch into contiguous chunks, one a
+device of ``repro_torch.distributed.sharding.batch_mesh``, as the
+reference's ``shard_map`` path does.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.core import reward as rw
 from repro_torch.core import state as st
 from repro_torch.core.partition import PartitionResult, partition, stats_vec
 from repro_torch.core.reward import RewardModel, adaptive_weights
+from repro_torch.distributed.sharding import batch_mesh, shard_call
 from repro_torch.ppa import config_space as cs
 from repro_torch.ppa.analytic import (M_IDX, evaluate, evaluate_batch,
                                       evaluate_vec, node_matrix, node_vector)
@@ -189,22 +192,25 @@ def step_core(cfg, delta_cont, a_disc, wl, node, ranges, weights):
     return new_cfg, metrics, r, new_ranges, parts
 
 
+def encode(wl, cfg, metrics, node, part_stats):
+    """The Table-2 encoding reduced to the SAC state, over the batch."""
+    return st.sac_state_vec(st.encode_vec(wl, cfg, metrics, node, part_stats))
+
+
 def step_analytic(cfg, delta_cont, a_disc, wl, node, ranges, weights):
     """The fused step over the batch: :func:`step_core`, then the analytic
     partition-stat refresh and the Table-2 encoding."""
     new_cfg, metrics, r, new_ranges, parts = step_core(
         cfg, delta_cont, a_disc, wl, node, ranges, weights)
     part_stats = stats_vec(new_cfg, wl)
-    obs = st.sac_state_vec(st.encode_vec(wl, new_cfg, metrics, node,
-                                         part_stats))
+    obs = encode(wl, new_cfg, metrics, node, part_stats)
     return new_cfg, metrics, r, new_ranges, parts, part_stats, obs
 
 
 def reset_eval_analytic(cfg, wl, node):
     metrics = evaluate_vec(cfg, wl, node)
     part_stats = stats_vec(cfg, wl)
-    obs = st.sac_state_vec(st.encode_vec(wl, cfg, metrics, node, part_stats))
-    return part_stats, obs
+    return part_stats, encode(wl, cfg, metrics, node, part_stats)
 
 
 class VecDSEEnv:
@@ -220,7 +226,15 @@ class VecDSEEnv:
         scalar env.
       * "exact" — the scalar env's host partitioner with per-element
         refresh triggers and caches; the full state then matches
-        :class:`DSEEnv` element by element."""
+        :class:`DSEEnv` element by element.
+
+    ``devices``: split the batch into ``devices`` contiguous chunks, step
+    each on its device of ``batch_mesh(devices, device=device)`` and gather
+    the results on ``device`` (the reference's ``shard_map`` path, with its
+    error for a batch that ``devices`` does not divide).  The step is
+    element-wise over the batch, so the chunked engine is bitwise the
+    unchunked one; ``devices=1`` runs the chunked path with one chunk and
+    ``None`` the plain one.  On the CPU the chunks share the one device."""
 
     def __init__(self, workload: Workload, node_nm: Union[int, Sequence[int]],
                  *, batch: int = 64, high_perf: bool = True, seed: int = 0,
@@ -232,10 +246,6 @@ class VecDSEEnv:
         if partition_mode not in ("analytic", "exact"):
             raise ValueError(f"unknown partition_mode {partition_mode!r}")
         self.partition_mode = partition_mode
-        if devices is not None:
-            raise NotImplementedError(
-                "devices: sharding the batch over several cards is not "
-                "ported; leave devices=None")
         self.device = dev = device_mod.resolve(device)
         if isinstance(node_nm, (int, np.integer)):
             node_nms = [int(node_nm)] * batch
@@ -245,6 +255,15 @@ class VecDSEEnv:
         if batch < 1:
             raise ValueError(f"VecDSEEnv needs batch >= 1, got {batch}")
         self.batch = batch
+        self.devices = devices
+        self.mesh = None
+        if devices is not None:
+            n = int(devices)
+            if batch % max(n, 1):
+                raise ValueError(
+                    f"VecDSEEnv batch ({batch}) must divide evenly over "
+                    f"devices ({n})")
+            self.mesh = batch_mesh(n, device=dev)   # raises if n > cards
         self.workload = workload
         self.node_nms = node_nms
         self.high_perf = high_perf
@@ -283,8 +302,8 @@ class VecDSEEnv:
             cfgs[i] = base + noise * (cs.HI - cs.LO) * 0.1
         self.cfg = cs.project(torch.as_tensor(cfgs, device=self.device))
         if self.partition_mode == "analytic":
-            stats, obs = reset_eval_analytic(self.cfg, self.wl_vec,
-                                             self.node_mat)
+            stats, obs = self._call(reset_eval_analytic, self.cfg,
+                                    self.wl_vec, self.node_mat, rep=(1,))
             self._part_stats = _np(stats)
             return _np(obs)
         cfg_np = _np(self.cfg)
@@ -302,13 +321,14 @@ class VecDSEEnv:
                               device=self.device)
         if self.partition_mode == "analytic":
             (new_cfg, metrics, r, new_ranges, parts, stats,
-             obs) = step_analytic(self.cfg, delta, a_d, self.wl_vec,
-                                  self.node_mat, self.ranges, self.weights)
+             obs) = self._call(step_analytic, self.cfg, delta, a_d,
+                               self.wl_vec, self.node_mat, self.ranges,
+                               self.weights, rep=(3,))
             self._part_stats = _np(stats)
         else:
-            new_cfg, metrics, r, new_ranges, parts = step_core(
-                self.cfg, delta, a_d, self.wl_vec, self.node_mat,
-                self.ranges, self.weights)
+            new_cfg, metrics, r, new_ranges, parts = self._call(
+                step_core, self.cfg, delta, a_d, self.wl_vec, self.node_mat,
+                self.ranges, self.weights, rep=(3,))
             cfg_np = _np(new_cfg)
             mesh = cfg_np[:, _PART_KEY_IDX[:2]]
             self._steps_since += 1
@@ -343,11 +363,19 @@ class VecDSEEnv:
         return _np(evaluate_batch(proj, self.wl_vec, self.node_mat[0]))
 
     # -------------------------------------------------------------- internals
+    def _call(self, fn, *args, rep=()):
+        """``fn(*args)``, chunked over the mesh when ``devices`` is set
+        (``rep``: the positions of the operands every chunk takes whole)."""
+        if self.mesh is None:
+            return fn(*args)
+        return shard_call(fn, self.mesh, args, replicated=rep,
+                          out_device=self.device)
+
     def _encode(self, cfg: torch.Tensor, metrics: torch.Tensor
                 ) -> torch.Tensor:
         stats = torch.as_tensor(self._part_stats, device=self.device)
-        return st.sac_state_vec(st.encode_vec(self.wl_vec, cfg, metrics,
-                                              self.node_mat, stats))
+        return self._call(encode, self.wl_vec, cfg, metrics, self.node_mat,
+                          stats, rep=(0,))
 
     def _refresh_partitions(self, cfg_np: np.ndarray,
                             need: np.ndarray) -> None:

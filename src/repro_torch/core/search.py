@@ -27,7 +27,14 @@ launch an insert, ``sumtree_sample`` an update) and acts through the
 :func:`run_random` draws the reference's configurations and
 :func:`run_grid` walks its lattice.
 
-Not ported yet: ``devices``, ``warm_start`` and telemetry.
+Telemetry (``repro_torch.obs``) is wired where the reference wires it:
+registry taps fed once a dispatch from host values the loop already holds
+(no device synchronisation the untraced loop does not do), the
+``first_dispatch`` and ``checkpoint`` spans, the ``search`` counters and
+the ``run_search_cells`` span.  It reads clocks and counters only, so a
+traced search is bitwise an untraced one.  ``devices`` chunks the env
+batch over a ``batch_mesh`` (``core.env``).  Not ported yet:
+``warm_start`` (cross-campaign transfer).
 """
 from __future__ import annotations
 
@@ -54,6 +61,8 @@ from repro_torch.core.pareto import ArchiveEntry, ParetoArchive
 from repro_torch.core.partition import partition
 from repro_torch.core.replay import PERBuffer
 from repro_torch.core.state import SAC_STATE_DIM
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ppa import config_space as cs
 from repro_torch.ppa import surrogate as sur_mod
 from repro_torch.ppa.analytic import (M_DIM, M_IDX, evaluate_batch,
@@ -333,12 +342,15 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     the prefill evaluation on the run's device, tokens/s from decode —
     instead of the plain scalarisation, and the results carry
     ``ttft_ms``/``slo_ok``.  Strictly post-loop: ``scenario=None`` is the
-    engine without it, bit for bit.  ``devices`` and ``warm_start`` are
-    not ported yet and raise."""
-    for name, val in (("devices", devices), ("warm_start", warm_start)):
-        if val is not None:
-            raise NotImplementedError(
-                f"run_search_cells: {name} is not ported to repro_torch yet")
+    engine without it, bit for bit.
+
+    ``devices``: chunk the B = cells x lanes batch of the env step over a
+    ``batch_mesh(devices)`` (``VecDSEEnv``); the step is element-wise over
+    the batch, so every result is bitwise the ``devices=None`` run's.
+    ``warm_start`` is not ported yet and raises."""
+    if warm_start is not None:
+        raise NotImplementedError(
+            "run_search_cells: warm_start is not ported to repro_torch yet")
     sc = search or SearchConfig()
     dev = device_mod.resolve(device)
     n_cells = len(node_nms)
@@ -348,7 +360,8 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     b = n_cells * lanes
     t0 = time.time()
     env = VecDSEEnv(workload, np.repeat(node_nms, lanes).tolist(),
-                    high_perf=high_perf, seed=sc.seed, device=dev)
+                    high_perf=high_perf, seed=sc.seed, devices=devices,
+                    device=dev)
     rng = np.random.default_rng(sc.seed)
     gen = torch.Generator(device=dev).manual_seed(sc.seed)
 
@@ -456,6 +469,31 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
         t_env = start_t * lanes
     else:
         s = env.reset()      # (B, 52)
+
+    # ---- telemetry: read-only taps on the loop's own state ---------------
+    # Handles hoisted out of the hot loop.  Everything fed below is a host
+    # value the loop already holds (clocks, numpy counters, python floats):
+    # no RNG stream, no checkpoint content and no device synchronisation
+    # of its own, so results are bitwise identical with telemetry on or
+    # off, and the heartbeat thread that snapshots the registry never
+    # touches a CUDA tensor.
+    _reg = obs_metrics.global_registry()
+    _m_steps = _reg.counter("env_steps_total")
+    _m_screened = _reg.counter("screened_total")
+    _m_evaluated = _reg.counter("evaluated_total")
+    _m_sps = _reg.gauge("env_steps_per_s")
+    _m_gate = _reg.gauge("gate_open_frac")
+    _m_eps = _reg.gauge("search_eps")
+    _m_ent = _reg.gauge("sac_entropy")
+    _m_prio = _reg.gauge("per_max_priority")
+    _m_size = _reg.gauge("per_size")
+    _m_beta = _reg.gauge("per_beta")
+    _m_best = _reg.gauge("best_score")
+    _m_disp = _reg.histogram("dispatch_seconds")
+    # screened/evaluated are cumulative in the gate (and survive resume):
+    # counters track the delta per dispatch so fleet aggregation sums
+    _prev_scr = float(gate.screened.sum())
+    _prev_ev = float(gate.evaluated.sum())
 
     def _checkpoint(t_next: int) -> None:
         seen_keys = [k for c in range(n_cells) for k in seen[c]]
@@ -604,7 +642,30 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
                 ys = np.concatenate(list(sur_y), axis=0)
                 pick = rng.integers(0, len(xs), size=min(256, len(xs)))
                 surrogate.update(xs[pick], ys[pick])
-        dispatch_s.append(time.time() - _dt0)
+        _td = time.time() - _dt0
+        dispatch_s.append(_td)
+        # ---- telemetry feed: clocks + loop counters only -----------------
+        _m_disp.observe(_td)
+        _m_steps.inc(b)
+        _m_sps.set(b / _td if _td > 0 else 0.0)
+        _m_gate.set(float(np.mean(gate.open)))
+        _m_eps.set(eps_sched.eps)
+        _m_ent.set(last_entropy)
+        _m_prio.set(float(buf.max_priority))
+        _m_size.set(float(buf.size))
+        _m_beta.set(float(buf.beta))
+        _bb = min(best[c][0] for c in range(n_cells))
+        if np.isfinite(_bb):
+            _m_best.set(float(_bb))
+        _scr, _ev = float(gate.screened.sum()), float(gate.evaluated.sum())
+        _m_screened.inc(_scr - _prev_scr)
+        _m_evaluated.inc(_ev - _prev_ev)
+        _prev_scr, _prev_ev = _scr, _ev
+        if t == start_t:
+            # the first dispatch builds the kernels and warms the caches —
+            # worth a span of its own on the timeline
+            obs_trace.complete("first_dispatch", _dt0, _td, cat="search",
+                               cells=n_cells, lanes=lanes)
         # ---- epsilon decay: one per per-cell env-step (Eq. 9) ------------
         found = bool(feasible_count.sum() > 0)
         for _ in range(lanes):
@@ -619,6 +680,11 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
                     feasible_count=int(feasible_count[c]),
                     tok_s=float(np.mean(
                         info.metrics[lo:hi, M_IDX["tok_s"]]))))
+            obs_trace.counter("search", env_steps_s=(b / _td if _td > 0
+                                                     else 0.0),
+                              eps=eps_sched.eps,
+                              gate_open_frac=float(np.mean(gate.open)),
+                              feasible=float(feasible_count.sum()))
             if sc.verbose:
                 bb = min(float(best[c][0]) for c in range(n_cells))
                 print(f"  step {t:5d} (ep {t_env}) r={float(np.mean(r)):+.3f} "
@@ -635,7 +701,8 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
         # a resumed run must never execute dispatches the original skipped)
         if checkpoint_dir and checkpoint_every > 0 \
                 and (t + 1) % checkpoint_every == 0 and t + 1 < n_steps:
-            _checkpoint(t + 1)
+            with obs_trace.span("checkpoint", cat="search", step=t + 1):
+                _checkpoint(t + 1)
 
     if save_weights_to:
         # final-weights snapshot for cross-campaign warm-starts; plain
@@ -650,6 +717,9 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     # ---- final selection per cell: Pareto-scalarized (paper §3.10) -------
     results = []
     wall = time.time() - t0
+    obs_trace.complete("run_search_cells", t0, wall, cat="search",
+                       cells=n_cells, lanes=lanes, episodes=sc.episodes,
+                       env_steps=t_env * n_cells)
     for c, node_nm in enumerate(node_nms):
         sel = archives[c].select(env.w_perf, env.w_power, env.w_area)
         best_cfg = sel.cfg if sel is not None else best[c][1]
@@ -708,12 +778,13 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
 
 def run_search(workload: Workload, node_nm: int, *, high_perf: bool = True,
                search: Optional[SearchConfig] = None, n_envs: int = 64,
-               device="cuda") -> SearchResult:
+               devices: Optional[int] = None, device="cuda") -> SearchResult:
     """Algorithm 1 on the batched engine: ``n_envs`` parallel episodes per
-    dispatch (the single-cell view of :func:`run_search_cells`)."""
+    dispatch (the single-cell view of :func:`run_search_cells`), the env
+    batch chunked over ``devices`` when given."""
     return run_search_cells(workload, [node_nm], high_perf=high_perf,
                             search=search, lanes_per_cell=n_envs,
-                            device=device)[0]
+                            devices=devices, device=device)[0]
 
 
 def search_all_nodes(workload: Workload, nodes: Sequence[int], *,

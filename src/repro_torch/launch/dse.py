@@ -23,11 +23,16 @@ Campaigns (``repro_torch.campaign``) run a whole grid (with scenario axes
 killed one bit-for-bit:
 
     python -m repro_torch.launch.dse --campaign grid.json --device cuda \
-        [--campaign-root experiments/campaigns]
+        [--campaign-root experiments/campaigns] [--workers W] [--devices N]
     python -m repro_torch.launch.dse --resume experiments/campaigns/<name>
 
-Fleets (``--workers`` and its flags), ``--transfer-from`` and
-``--devices``/``--mesh`` are not ported yet and are refused.
+``--workers W`` runs the campaign as a supervised fleet of W worker
+processes on the same device (``repro_torch.launch.fleet``; W workers
+share one card), with ``--hosts``/``--launch-template`` for remote
+workers, ``--lease-ttl`` and ``--no-supervise``.  ``--devices N`` (alias
+``--mesh N|auto``) chunks the env batch over the first N cards
+(``repro_torch.distributed.sharding``); more than the visible cards is a
+one-line error.  ``--transfer-from`` is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
         batch: int = 3, update_every: int = 1, verbose: bool = False,
         engine: str = "vec", n_envs: int = 64,
         surrogate_gate: bool = True, screen_k: Optional[int] = None,
-        gate_threshold: Optional[float] = None, phase: str = "decode",
+        gate_threshold: Optional[float] = None,
+        devices: Optional[int] = None, phase: str = "decode",
         dtype: str = "native", device="cuda",
         results: Optional[List[SearchResult]] = None) -> List[Dict]:
     """Run the search per node and write the artifacts; returns the rows.
@@ -90,7 +96,8 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
                               **gate_kw)
             if engine == "vec":
                 res = run_search(wl, node, high_perf=high_perf, search=sc,
-                                 n_envs=n_envs, device=device)
+                                 n_envs=n_envs, devices=devices,
+                                 device=device)
             else:
                 res = run_sac(wl, node, high_perf=high_perf, search=sc,
                               device=device)
@@ -122,25 +129,47 @@ def run(arch: str, *, nodes: List[int], mode: str, episodes: int,
     return rows
 
 
-_NOT_PORTED = (
-    ("--devices", "devices", "sharding over several cards"),
-    ("--mesh", "mesh", "sharding over several cards"),
-    ("--transfer-from", "transfer_from", "cross-campaign transfer"),
-    ("--workers", "workers", "fleets"),
-    ("--hosts", "hosts", "fleets"),
-    ("--launch-template", "launch_template", "fleets"),
-    ("--lease-ttl", "lease_ttl", "fleets"),
-    ("--no-supervise", "no_supervise", "fleets"),
-)
+def _parse_hosts(s: Optional[str]) -> Optional[List[str]]:
+    """--hosts comma list -> cleaned host names (None if flag absent)."""
+    if s is None:
+        return None
+    return [h.strip() for h in s.split(",") if h.strip()]
+
+
+def _resolve_devices(ap: argparse.ArgumentParser,
+                     a: argparse.Namespace) -> Optional[int]:
+    """--mesh/--devices -> device count (None = the plain single-device
+    step), checked against the cards ``--device`` sees before any work:
+    more than ``torch.cuda.device_count()`` is a one-line ``ap.error``.
+    ``--mesh auto`` takes every visible card (one on the CPU)."""
+    if a.mesh is not None and a.devices is not None:
+        ap.error("--mesh and --devices are aliases; pass exactly one")
+    spec = a.mesh if a.mesh is not None else a.devices
+    if spec is None:
+        return None
+    from repro_torch.distributed.sharding import batch_mesh
+    n = None
+    if spec != "auto":
+        try:
+            n = int(spec)
+        except ValueError:
+            ap.error(f"--mesh must be 'auto' or a device count "
+                     f"(got {spec!r})")
+        if n < 1:
+            ap.error(f"--devices must be >= 1 (got {n})")
+    try:
+        return len(batch_mesh(n, device=a.device))
+    except ValueError as e:
+        ap.error(f"--devices {spec}: {e}")
 
 
 def validate_args(ap: argparse.ArgumentParser,
                   a: argparse.Namespace) -> None:
     """Reject invalid or not-yet-ported flag combinations up front with a
-    one-line error (the reference's checks, for what is ported)."""
-    for flag, attr, part in _NOT_PORTED:
-        if getattr(a, attr) not in (None, False):
-            ap.error(f"{flag}: not ported to repro_torch yet ({part})")
+    one-line error (the reference's checks)."""
+    if a.transfer_from:
+        ap.error("--transfer-from: not ported to repro_torch yet "
+                 "(cross-campaign transfer)")
     if a.n_envs < 1:
         ap.error(f"--n-envs must be >= 1 (got {a.n_envs})")
     if a.engine == "scalar" and a.n_envs != ap.get_default("n_envs"):
@@ -174,6 +203,43 @@ def validate_args(ap: argparse.ArgumentParser,
         ap.error(f"{'/'.join(gate_flags)} applies to --engine vec or "
                  "--campaign runs; the scalar engine has no surrogate "
                  "screening gate")
+    mesh_flags = [n for n, v in (("--devices", a.devices),
+                                 ("--mesh", a.mesh)) if v is not None]
+    if mesh_flags and a.resume:
+        ap.error(f"{'/'.join(mesh_flags)}: a resumed campaign keeps the "
+                 "mesh recorded in its manifest; start a new campaign to "
+                 "change it")
+    if mesh_flags and not a.campaign and a.engine != "vec":
+        ap.error(f"{'/'.join(mesh_flags)} chunk the batched engine's env "
+                 "batch over devices; pass --engine vec or --campaign "
+                 "with them")
+    if a.workers is not None and a.workers < 1:
+        ap.error(f"--workers must be >= 1 (got {a.workers})")
+    if a.workers is not None and not (a.campaign or a.resume):
+        ap.error("--workers shards a campaign across worker processes; "
+                 "pass --campaign (or --resume) with it")
+    fleet_flags = [n for n, v in (("--hosts", a.hosts),
+                                  ("--launch-template", a.launch_template),
+                                  ("--lease-ttl", a.lease_ttl))
+                   if v is not None]
+    if a.no_supervise:
+        fleet_flags.append("--no-supervise")
+    if fleet_flags and a.workers is None and not a.resume:
+        ap.error(f"{'/'.join(fleet_flags)} configure fleet campaigns; "
+                 "pass --workers (or --resume) with them")
+    if a.lease_ttl is not None and a.lease_ttl <= 0:
+        ap.error(f"--lease-ttl must be > 0 seconds (got {a.lease_ttl})")
+    if a.hosts is not None and not _parse_hosts(a.hosts):
+        ap.error(f"--hosts must be a comma list of host names "
+                 f"(got {a.hosts!r})")
+    if a.launch_template is not None and (
+            "{root}" not in a.launch_template
+            or "{worker}" not in a.launch_template):
+        ap.error("--launch-template must reference {root} and {worker} "
+                 f"(got {a.launch_template!r})")
+    if a.launch_template is not None and "{host}" in a.launch_template \
+            and a.hosts is None:
+        ap.error("--launch-template references {host}; pass --hosts too")
     scen_flags = [n for n, v, d in (("--phase", a.phase, "decode"),
                                     ("--dtype", a.dtype, "native"))
                   if v != d]
@@ -191,22 +257,37 @@ def validate_args(ap: argparse.ArgumentParser,
         ap.error(f"--resume: no campaign manifest under {a.resume}")
 
 
-def run_campaign_cli(ap: argparse.ArgumentParser,
-                     a: argparse.Namespace) -> None:
-    """``--campaign`` / ``--resume``: plan, run, persist and report."""
+def run_campaign_cli(ap: argparse.ArgumentParser, a: argparse.Namespace,
+                     devices: Optional[int]) -> None:
+    """``--campaign`` / ``--resume``: plan, run, persist and report, as
+    one process or (``--workers``, or a fleet manifest on ``--resume``) as
+    a supervised fleet of worker processes on ``--device``."""
     import dataclasses
 
     from repro_torch.campaign import CampaignSpec, CampaignStore, run_campaign
+    hosts = _parse_hosts(a.hosts)
+    fleet_kw = dict(lease_ttl_s=a.lease_ttl, supervise=not a.no_supervise,
+                    device=a.device)
+    if a.launch_template or hosts:
+        from repro_torch.launch.fleet import make_launcher
+        fleet_kw["launcher"] = make_launcher(a.launch_template, hosts,
+                                             a.device)
     if a.resume:
         store = CampaignStore.open(a.resume)
-        if store.manifest.get("fleet"):
-            ap.error(f"--resume {a.resume}: a fleet campaign; fleets are "
-                     "not ported to repro_torch yet")
         try:
             store.spec          # a spec the port refuses raises here
         except (ValueError, TypeError) as e:
             ap.error(f"--resume {a.resume}: {e}")
-        run_campaign(a.resume, resume=True, device=a.device)
+        if a.workers is not None or store.manifest.get("fleet"):
+            from repro_torch.launch.fleet import run_fleet
+            run_fleet(a.resume, workers=a.workers, resume=True, **fleet_kw)
+        else:
+            if hosts or a.launch_template or a.lease_ttl is not None \
+                    or a.no_supervise:
+                ap.error(f"{a.resume} is a single-process campaign; "
+                         "fleet flags need --workers N to upgrade it "
+                         "to a fleet on resume")
+            run_campaign(a.resume, resume=True, device=a.device)
         return
     try:
         spec = CampaignSpec.from_file(a.campaign)
@@ -219,10 +300,18 @@ def run_campaign_cli(ap: argparse.ArgumentParser,
         overrides["gate_threshold"] = a.gate_threshold
     if a.no_surrogate_gate:
         overrides["surrogate_gate"] = False
+    if devices is not None:
+        overrides["devices"] = devices
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
-    run_campaign(os.path.join(a.campaign_root, spec.name), spec,
-                 device=a.device)
+    root = os.path.join(a.campaign_root, spec.name)
+    if a.workers is not None:
+        # any explicit --workers (including 1) runs the fleet layout,
+        # matching what --resume --workers produces
+        from repro_torch.launch.fleet import run_fleet
+        run_fleet(root, spec, workers=a.workers, **fleet_kw)
+    else:
+        run_campaign(root, spec, device=a.device)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -252,7 +341,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="vec (batched, the default for --method sac) or "
                          "scalar (one environment; random/grid run here)")
     ap.add_argument("--n-envs", type=int, default=64)
-    ap.add_argument("--devices", type=int, default=None)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="chunk the env batch over this many cards (vec "
+                         "engine / campaigns); must divide the batch and "
+                         "be <= torch.cuda.device_count() (any count on "
+                         "the CPU).  Chunked runs are bitwise the plain "
+                         "ones")
+    ap.add_argument("--mesh", default=None, metavar="N|auto",
+                    help="alias for --devices; 'auto' takes every visible "
+                         "card")
     ap.add_argument("--screen-k", type=int, default=None)
     ap.add_argument("--gate-threshold", type=float, default=None)
     ap.add_argument("--no-surrogate-gate", action="store_true")
@@ -260,17 +357,40 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="grid spec (.json/.yaml): run a full multi-workload"
                          " x multi-node campaign instead of a single search")
     ap.add_argument("--resume", default="",
-                    help="existing campaign run directory to resume")
+                    help="existing campaign run directory to resume "
+                         "(fleet campaigns resume at fleet scope: "
+                         "completed cells are reconciled and skipped, "
+                         "unfinished batches are re-dealt)")
     ap.add_argument("--campaign-root", default="experiments/campaigns",
                     help="parent directory for new campaign run dirs")
-    # refused until their slices land (see validate_args)
-    ap.add_argument("--mesh", default=None)
+    # refused until cross-campaign transfer lands (see validate_args)
     ap.add_argument("--transfer-from", action="append", default=None)
-    ap.add_argument("--workers", type=int, default=None)
-    ap.add_argument("--hosts", default=None)
-    ap.add_argument("--launch-template", default=None)
-    ap.add_argument("--lease-ttl", type=float, default=None)
-    ap.add_argument("--no-supervise", action="store_true")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="shard the campaign's cell batches across this "
+                         "many shared-nothing worker processes on "
+                         "--device (repro_torch.launch.fleet); with "
+                         "--resume, overrides the manifest's recorded "
+                         "worker count")
+    ap.add_argument("--hosts", default=None,
+                    help="comma list of hosts for fleet workers (slot i "
+                         "runs on hosts[i %% len]); implies the ssh "
+                         "launch template unless --launch-template is "
+                         "given; the grid file's 'hosts' key is the "
+                         "fallback")
+    ap.add_argument("--launch-template", default=None,
+                    help="command template spawning one fleet worker, "
+                         "e.g. 'ssh {host} python -m "
+                         "repro_torch.launch.fleet --root {root} --worker "
+                         "{worker} --device {device}'; {python} expands "
+                         "to the local interpreter")
+    ap.add_argument("--lease-ttl", type=float, default=None,
+                    help="fleet worker lease TTL in seconds (default 15): "
+                         "a worker silent for longer is presumed dead and "
+                         "its pending batches are re-dealt mid-run")
+    ap.add_argument("--no-supervise", action="store_true",
+                    help="disable the elastic fleet supervisor: dead "
+                         "workers' batches are NOT re-dealt mid-run; "
+                         "recover manually with --resume")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
@@ -278,8 +398,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if a.engine is None:
         a.engine = "vec" if a.method == "sac" else "scalar"
     validate_args(ap, a)
+    devices = _resolve_devices(ap, a)
+    if devices is not None and not a.campaign and a.n_envs % devices:
+        ap.error(f"--n-envs {a.n_envs} must divide evenly over "
+                 f"--devices {devices}")
     if a.campaign or a.resume:
-        run_campaign_cli(ap, a)
+        run_campaign_cli(ap, a, devices)
         return
     nodes = list(NODES) if a.nodes == "all" else [
         int(x) for x in a.nodes.split(",")]
@@ -288,8 +412,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         batch=a.batch, update_every=a.update_every, verbose=a.verbose,
         engine=a.engine, n_envs=a.n_envs,
         surrogate_gate=not a.no_surrogate_gate, screen_k=a.screen_k,
-        gate_threshold=a.gate_threshold, phase=a.phase, dtype=a.dtype,
-        device=a.device)
+        gate_threshold=a.gate_threshold, devices=devices, phase=a.phase,
+        dtype=a.dtype, device=a.device)
 
 
 if __name__ == "__main__":

@@ -94,8 +94,8 @@ def test_grid_expansion_and_packing_match_the_reference():
     (dict(lanes=64, max_envs=8), "max_envs"),
     (dict(screen_k=0), "screen_k"),
     (dict(transfer_from=["/x"]), "transfer_from: cross-campaign"),
-    (dict(devices=2), "devices: sharding"),
-    (dict(hosts=["h1"]), "hosts: fleets"),
+    (dict(devices=0), "devices must be >= 1"),
+    (dict(hosts=[" "]), "hosts must be a non-empty list"),
 ])
 def test_spec_validation(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -312,11 +312,11 @@ def test_cli_resumes_a_zoo_workload_run_dir(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--workers", "2"], "--workers: not ported"),
-    (["--hosts", "a,b"], "--hosts: not ported"),
+    (["--workers", "0"], "--workers must be >= 1"),
+    (["--hosts", "a,b"], "pass --workers"),
     (["--transfer-from", "/x"], "--transfer-from: not ported"),
-    (["--mesh", "2"], "--mesh: not ported"),
-    (["--devices", "2"], "--devices: not ported"),
+    (["--mesh", "x"], "--mesh must be 'auto'"),
+    (["--devices", "2", "--resume"], "keeps the mesh"),
     (["--phase", "prefill"], "sweep these as 'phases'"),
     (["--screen-k", "3", "--resume"], "keeps the gate settings"),
     (["--resume"], "no campaign manifest"),

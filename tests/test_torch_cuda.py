@@ -6,7 +6,9 @@ short campaign that launches every search kernel and resumes
 bit-for-bit, a scenario campaign (SLO selection) and the scalar act path
 against the same on the CPU, and the LM kernels (``flash_attention``,
 ``ssm_scan``, the windowed Mixtral shape among them) and reduced LM
-generation on the card against the same on the CPU.
+generation on the card against the same on the CPU, ``devices=1``
+bitwise ``devices=None``, and a W=2 fleet of two processes on the card
+fingerprinting as the W=1 campaign.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -801,3 +803,59 @@ def test_lm_generation_on_card_matches_cpu(dev, arch, dtype):
         np.testing.assert_array_equal(got.tokens, want.tokens)
     else:
         assert err <= 5e-2 * scale, (err, scale)
+
+
+def test_devices_one_on_card_is_bitwise_devices_none(dev):
+    """``devices=1`` runs the chunked env path with one chunk on the card;
+    its env rollout and a short search (gate open, learning on) are
+    bitwise the ``devices=None`` run's."""
+    wl = extract(get_config("llama3.1-8b"), seq_len=2048, batch=3)
+    rollouts = []
+    for devices in (None, 1):
+        env = VecDSEEnv(wl, [3, 7] * 32, batch=64, seed=0, devices=devices,
+                        device="cuda")
+        out, rng = [env.reset()], np.random.default_rng(0)
+        for _ in range(4):
+            a_c = rng.uniform(-1, 1, (64, 30)).astype(np.float32)
+            a_d = rng.integers(0, 5, (64, 4))
+            o, r, info = env.step(a_c, a_d)
+            out += [o, r, info.metrics]
+        rollouts.append(out)
+    for a, b in zip(*rollouts):
+        np.testing.assert_array_equal(a, b)
+    sc = SearchConfig(episodes=640, seed=0, batch_size=64, warmup=64,
+                      gate_threshold=1e9)
+    plain, one = (run_search(wl, 3, search=sc, n_envs=64, devices=d,
+                             device="cuda") for d in (None, 1))
+    assert plain.gate_open_episode is not None
+    assert json.dumps([e.to_dict() for e in plain.archive.entries]) == \
+        json.dumps([e.to_dict() for e in one.archive.entries])
+    assert [t.__dict__ for t in plain.trace] == [t.__dict__
+                                                 for t in one.trace]
+    assert plain.best_score == one.best_score
+
+
+def test_fleet_w2_on_card_fingerprints_as_w1(dev, tmp_path):
+    """Two worker processes share the card: the W=2 fleet fingerprints as
+    the W=1 campaign, every worker ran on ``cuda`` and its final lease
+    counts ``actor_moe``, ``sumtree`` and ``sumtree_sample`` launches."""
+    from repro_torch.campaign import fingerprint
+    from repro_torch.campaign.distrib import worker_root
+    from repro_torch.campaign.store import read_lease
+    from repro_torch.launch.fleet import run_fleet
+    from repro_torch.obs.metrics import snapshot_value
+    spec = CampaignSpec(name="cardfleet", workloads=["smolvlm"],
+                        nodes=[3, 28], modes=["high_perf"], episodes=640,
+                        lanes=64, max_envs=64, checkpoint_every=4)
+    ref = run_campaign(str(tmp_path / "w1"), spec, progress=lambda m: None)
+    store = run_fleet(str(tmp_path / "w2"), spec, workers=2,
+                      progress=lambda m: None, device="cuda")
+    assert store.all_done()
+    assert fingerprint(store) == fingerprint(ref)
+    for i in (0, 1):
+        # a launch is counted only for a CUDA tensor: the worker ran on
+        # the card
+        snap = read_lease(worker_root(store.root, i))["metrics"]
+        for name in ("actor_moe", "sumtree", "sumtree_sample"):
+            assert snapshot_value(snap, "counters", "kernel_launches_total",
+                                  {"kernel": name}) > 0, (i, name)

@@ -186,8 +186,9 @@ def test_vec_env_evaluate_configs_matches_reference():
 
 def test_vec_env_refuses_unported_modes_and_missing_cuda(monkeypatch):
     wl = _wl()
-    with pytest.raises(NotImplementedError):
-        VecDSEEnv(wl, 3, batch=4, devices=2, device="cpu")
+    # devices (ported since) must divide the batch, as in the reference
+    with pytest.raises(ValueError, match="divide evenly"):
+        VecDSEEnv(wl, 3, batch=4, devices=3, device="cpu")
     with pytest.raises(ValueError, match="unknown partition_mode"):
         VecDSEEnv(wl, 3, batch=4, partition_mode="nope", device="cpu")
     # the default device is cuda, and without a card that is an error,

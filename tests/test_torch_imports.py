@@ -38,7 +38,11 @@ PORTED = ("repro_torch.checkpoint.manager", "repro_torch.core.fsutil",
           "repro_torch.models.attention", "repro_torch.models.blocks",
           "repro_torch.models.lm", "repro_torch.launch.serve",
           "repro_torch.kernels.flash_attention",
-          "repro_torch.kernels.ssm_scan",
+          "repro_torch.kernels.ssm_scan", "repro_torch.obs",
+          "repro_torch.obs.trace", "repro_torch.obs.metrics",
+          "repro_torch.obs.log", "repro_torch.obs.export",
+          "repro_torch.distributed.sharding",
+          "repro_torch.campaign.distrib", "repro_torch.launch.fleet",
           *(f"repro_torch.configs.{m}" for m in (
               "smollm_135m", "qwen1_5_110b", "qwen2_72b", "mixtral_8x7b",
               "llama4_maverick_400b_a17b", "minicpm3_4b",

@@ -129,7 +129,7 @@ def test_cli_scalar_engine_writes_the_four_artifacts(tmp_path, capsys):
     assert "[dse] smolvlm 3nm [sac]" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--update-every", "4"], ["--devices", "2"],
+@pytest.mark.parametrize("flags", [["--update-every", "4"], ["--devices", "0"],
                                    ["--engine", "vec", "--method", "grid"]])
 def test_cli_rejects_what_is_not_ported(flags, capsys):
     """Flags the vec engine does not read are refused, not ignored."""
