@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the design-space search, campaigns, scenario
-grids with SLO selection, the scalar engine and its baselines, and LM
-serving) on one NVIDIA GPU.
+grids with SLO selection, the scalar engine and its baselines, LM serving,
+fleets, design recommendation and cross-campaign transfer) on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments:
 
@@ -86,7 +87,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   9. the scenario path: ``SCEN_GRID`` (Mixtral 8x7B at full width, nodes 3,
      7 and 28, both modes, dtypes native and fp8, phases decode and
      prefill, the default SLOs: 24 cells in 8 batches of 3 x 64 lanes,
-     4,613 episodes) through ``python -m repro_torch.launch.dse
+     2,048 episodes) through ``python -m repro_torch.launch.dse
      --campaign`` with the launch counts read around it; where a cell found
      designs, its pick, ``ttft_ms`` and ``slo_ok`` recomputed on the CPU
      from its stored frontier by the plain evaluator; the same grid at 512
@@ -120,7 +121,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      1 SIGKILLed after its first checkpoint: re-dealt to a fresh slot,
      fingerprinting as phase 7's uninterrupted run, the eviction and the
      re-deal in the manifest's events;
- 12. one JSON line per kernel, then the result line.
+ 12. recommend serving and cross-campaign transfer
+     (:func:`recommend_transfer`), over phase 6's run directory as the
+     index and the donor: (a) a ``Recommender`` built on ``cuda`` (the
+     index surrogate's 400 Adam steps and its calibration through
+     ``fused_mlp`` at 82 -> 32 -> 16 -> 3, held against the plain version
+     at the index's training-set size and ragged sizes, and timed there);
+     one mixed batch of ``SERVE_QUERIES`` queries from the seed (the zoo x
+     nodes x modes, raw feature vectors, budgets no archived point meets,
+     TTFT caps): archive answers bitwise a CPU recommender's and the cell
+     archive's select, surrogate answers those of a CPU recommender given
+     the card's fitted parameters (the same design wherever the two best
+     scores are more than 1e-4 apart, predictions within rtol 1e-4), one
+     dispatch for the batch and none for an all-exact one; the batch's
+     time beside ``SERVE_SEQUENTIAL`` sequential calls; ``score_query_batch``
+     timed on the card and the CPU; ``recommend_server`` on 127.0.0.1 in a
+     thread (a POST of 128 queries, ``/healthz``, ``/metrics``, a
+     malformed body's structured 400); (b) ``TRANSFER_GRID`` (SmolLM 135M
+     at full width, seq 2048, batch 3, both modes, all 7 nodes: 14 cells
+     in 2 batches of 7 x 64 lanes, 4,613 episodes) through ``python -m
+     repro_torch.launch.dse --campaign --transfer-from`` with the launch
+     counts read around it (``actor_moe``, ``sumtree``, ``sumtree_sample``
+     and ``fused_mlp`` must launch); its priorities, donors and ``cost_w``
+     bitwise a CPU ``with_transfer`` and ``prepare_store``; the seeded
+     frontiers re-evaluated on the CPU (feasible, rtol 1e-5); the same grid
+     cold, each cell's best ``ppa_score`` and first frontier episode warm
+     and cold printed; the warm grid as a W = 2 fleet, fingerprinting as
+     the W = 1 warm run, each worker's manifest carrying the transfer
+     record;
+ 13. one JSON line per kernel (``fused_mlp``'s with its serving shape
+     under ``serve``), then the result line.
 """
 from __future__ import annotations
 
@@ -177,6 +207,17 @@ KILL_GRID = dict(name="kill-resume", workloads=["smolvlm"], nodes=[3, 28],
                  max_envs=448, seed=0, seq_len=2048, batch=3,
                  checkpoint_every=4)
 SUMTREE_CAP = 100_000
+# phase 12: the mixed query batch answered over phase 6's run directory,
+# the sequential calls timed beside it, and the transfer target: SmolLM
+# 135M at full width, a workload the donor grid lacks, in phase 6's batch
+# shape (2 batches of 7 x 64 lanes)
+SERVE_QUERIES = 4096
+SERVE_SEQUENTIAL = 256
+TRANSFER_GRID = dict(name="transfer-grid", workloads=["smollm-135m"],
+                     nodes=[3, 5, 7, 10, 14, 22, 28],
+                     modes=["high_perf", "low_power"], episodes=4613,
+                     lanes=64, max_envs=448, seed=0, seq_len=2048, batch=3,
+                     checkpoint_every=8)
 # phase 11: the traced single cell's checkpoint period (3 checkpoints in
 # its 72 dispatches) and the deadlines of the fleet phases
 TRACE_CKPT_EVERY = 24
@@ -185,11 +226,13 @@ SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
                   "fused_mlp")
 # the scenario grid: the paper's prefill/decode x dtype axes for Mixtral 8x7B
 # at full width with SLO-aware selection (the default SLOs, set in main());
-# 3 cells a batch, so 8 batches of 3 x 64 lanes
+# 3 cells a batch, so 8 batches of 3 x 64 lanes; 2,048 episodes, cut from
+# 4,613 so that the whole script with phase 12 stays near its earlier
+# length (no cell found a design at 4,613 either)
 SCEN_GRID = dict(name="scenario-grid", workloads=["mixtral-8x7b"],
                  nodes=[3, 7, 28], modes=["high_perf", "low_power"],
                  dtypes=["native", "fp8"], phases=["decode", "prefill"],
-                 episodes=4613, lanes=64, max_envs=192, seed=0, seq_len=2048,
+                 episodes=2048, lanes=64, max_envs=192, seed=0, seq_len=2048,
                  batch=3, checkpoint_every=8)
 # Mixtral's 93.4 GB of weights (46.7 GB in fp8) fit almost no design of the
 # space (2 of 20,000 random designs feasible, all fp8 decode at 3 nm), so
@@ -198,8 +241,9 @@ SCEN_GRID = dict(name="scenario-grid", workloads=["mixtral-8x7b"],
 SLO_GRID = dict(SCEN_GRID, name="slo-grid", workloads=["llama3.1-8b"],
                 modes=["high_perf"], episodes=2048)
 # the scalar loop synchronises with the host every env-step, so its SAC run
-# is cut from the paper's 4,613 episodes; the baselines run the full budget
-SCALAR_EPISODES = 1024
+# is cut from the paper's 4,613 episodes (to 512, from 1,024 before phase
+# 12 was added); the baselines run the full budget
+SCALAR_EPISODES = 512
 # LM serving: (label, arch, config changes, batch, prompt, generated tokens,
 # logits tolerance as a share of max |logit|, or None for a printed
 # reading).  Llama 3.1 8B fits whole (16 GB in fp16); Jamba's 32 layers
@@ -376,11 +420,24 @@ def screen_work(b: int, k: int, w_bytes: int) -> tuple:
     return flops, w_bytes + (b * 52 + b * k * 30 + b * 3 + b * k) * 4
 
 
-def mlp_work(b: int, d_out: int, x_bytes: int) -> tuple:
-    """The same for one ``fused_mlp`` call, 82 -> 128 -> 64 -> d_out."""
-    w = 82 * 128 + 128 + 128 * 64 + 64 + 64 * d_out + d_out
-    flops = b * 2 * (82 * 128 + 128 * 64 + 64 * d_out)
+def mlp_work(b: int, d_out: int, x_bytes: int, h1: int = 128,
+             h2: int = 64) -> tuple:
+    """The same for one ``fused_mlp`` call, 82 -> h1 -> h2 -> d_out."""
+    w = 82 * h1 + h1 + h1 * h2 + h2 + h2 * d_out + d_out
+    flops = b * 2 * (82 * h1 + h1 * h2 + h2 * d_out)
     return flops, 4 * w + b * 82 * x_bytes + b * d_out * x_bytes
+
+
+def query_work(q: int, c: int, f: int, d: int, h1: int, h2: int) -> tuple:
+    """The same for one ``score_query_batch`` call: layer 1 split as
+    q @ W1[:F] and cand @ W1[F:], layers 2 and 3 on Q x C rows, the score,
+    the budget mask and the argmin (about 10 operations a (query,
+    candidate) pair); q, cand, the weights and the budgets read once, the
+    picks, predictions and flags written once."""
+    flops = 2.0 * (q * f * h1 + c * d * h1) + q * c * (
+        2.0 * (h1 * h2 + h2 * 3) + 2 * h1 + 10)
+    w = (f + d) * h1 + h1 + h1 * h2 + h2 + 3 * h2 + 3
+    return flops, 4 * (q * f + c * d + w + 5 * q) + q * (8 + 12 + 1)
 
 
 def sumtree_work(idx: np.ndarray, cap: int, scalar: bool) -> tuple:
@@ -674,6 +731,455 @@ def devices_telemetry_fleets(device, wl, single, grid_path, grid_name,
     return paths
 
 
+def mixed_queries(index, n: int, seed: int) -> list:
+    """``n`` recommendation queries made from ``seed``: every zoo arch x
+    node x mode, then in turn raw feature vectors, budgets below every
+    archived point of a cell, and TTFT caps (decode or prefill) with drawn
+    weights."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.launch.recommend import Query, split_cell_id
+    from repro_torch.ppa.nodes import NODES
+    rng = np.random.default_rng(seed)
+    modes = ("high_perf", "low_power")
+    grid = [dict(arch=a, node_nm=nd, mode=m) for a in sorted(ARCH_IDS)
+            for nd in NODES for m in modes]
+    floors = {cid: min(e.power_mw for e in ar.entries)
+              for cid, ar in sorted(index.cells.items())}
+    cids = sorted(floors)
+    out = list(grid)
+    while len(out) < n:
+        kind = len(out) % 3
+        if kind == 0:
+            out.append(dict(
+                node_nm=int(rng.choice(NODES)), mode=str(rng.choice(modes)),
+                features={"flops_per_token": float(10 ** rng.uniform(8, 12)),
+                          "weight_mb": float(10 ** rng.uniform(1, 5)),
+                          "seq_len": int(rng.choice([512, 2048, 8192])),
+                          "batch": int(rng.integers(1, 9)),
+                          "d_model": int(rng.choice([576, 2048, 8192]))}))
+        elif kind == 1:
+            cid = cids[int(rng.integers(len(cids)))]
+            arch, node, mode = split_cell_id(cid)
+            out.append(dict(arch=arch, node_nm=node, mode=mode,
+                            power_budget_mw=floors[cid]
+                            * float(rng.uniform(0.1, 0.9))))
+        else:
+            w = rng.dirichlet(np.ones(3))
+            out.append(dict(grid[int(rng.integers(len(grid)))],
+                            phase=str(rng.choice(["decode", "prefill"])),
+                            max_ttft_ms=float(10 ** rng.uniform(0, 4)),
+                            w_perf=float(w[0]), w_power=float(w[1]),
+                            w_area=float(w[2])))
+    return [Query(**d) for d in out[:n]]
+
+
+def query_json(q) -> dict:
+    """A query as the server's POST body holds it (no None, no inf)."""
+    out = {}
+    for f in dataclasses.fields(q):
+        v = getattr(q, f.name)
+        if isinstance(v, np.ndarray):
+            out[f.name] = v.tolist()
+        elif v is not None and v != np.inf:
+            out[f.name] = v
+    return out
+
+
+def plain_score_gaps(params, q, cand, w, budget, perf) -> np.ndarray:
+    """The gap between the two best (budget-masked, where a candidate is
+    within budget) scores of each query, from ``score_query_batch``'s
+    arithmetic in plain PyTorch on the CPU."""
+    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+    p = {k: {kk: v.cpu() for kk, v in d.items()} for k, d in params.items()}
+    q, cand, w, budget, perf = (t.cpu() for t in (q, cand, w, budget, perf))
+    f = q.shape[1]
+    w1 = p["l1"]["w"]
+    h = gelu((q @ w1[:f])[:, None] + (cand @ w1[f:])[None] + p["l1"]["b"])
+    h = gelu(h @ p["l2"]["w"] + p["l2"]["b"])
+    pred = torch.clamp_min(h @ p["head"]["w"] + p["head"]["b"], 0.0)
+    score = (w[:, None, 1] * pred[..., 0] + w[:, None, 2] * pred[..., 2]
+             - w[:, None, 0] * pred[..., 1])
+    ok = ((torch.expm1(pred[..., 0]) <= budget[:, None])
+          & (torch.expm1(pred[..., 1]) >= perf[:, None]))
+    masked = torch.where(ok.any(1, keepdim=True) & ~ok,
+                         torch.full_like(score, float("inf")), score)
+    if masked.shape[1] < 2:
+        return np.full(masked.shape[0], np.inf)
+    top = torch.topk(masked, 2, dim=1, largest=False).values
+    return (top[:, 1] - top[:, 0]).numpy()
+
+
+def recommend_transfer(device, index_root, root, timed=None,
+                       n_queries=SERVE_QUERIES, n_seq=SERVE_SEQUENTIAL,
+                       grid=TRANSFER_GRID) -> dict:
+    """Phase 12 (see the module docstring) on ``device`` over phase 6's run
+    directory ``index_root``; campaigns go under ``root``.  ``timed`` is
+    phase 4's timing harness (None: nothing timed).  Returns the launch
+    counts of the recommend path (the index build and the batch), the warm
+    transfer campaign and its W = 2 fleet (summed from the workers' final
+    leases), and the index's training-set size with ``fused_mlp``'s
+    largest error and its launches at the serving widths.  ``device="cpu"`` with cut budgets rehearses it without a
+    card (no launch is then required)."""
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.campaign import CampaignSpec, CampaignStore
+    from repro_torch.campaign import fingerprint as campaign_fingerprint
+    from repro_torch.campaign import transfer as transfer_mod
+    from repro_torch.campaign.distrib import worker_roots
+    from repro_torch.campaign.planner import plan_cached
+    from repro_torch.campaign.store import read_lease
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, policy_mlp
+    from repro_torch.launch import dse
+    from repro_torch.launch.recommend import ArchiveIndex, Recommender
+    from repro_torch.launch.serve import recommend_server
+    from repro_torch.models import cost_model as cm
+    from repro_torch.obs.metrics import snapshot_value
+    from repro_torch.ppa import analytic as an
+    from repro_torch.ppa import config_space as cs
+    from repro_torch.ppa import surrogate as sur
+    from repro_torch.ppa.nodes import node_params
+    from repro_torch.workload.extract import extract
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paths = {}
+    # fused_mlp launches at the serving widths (the index surrogate and the
+    # cost model), counted apart from the online surrogate's
+    serve_launches = [0]
+    real_cuda = policy_mlp.fused_mlp_cuda
+
+    def counting_cuda(x, w1, *rest):
+        serve_launches[0] += w1.shape[-1] == sur.SERVE_HIDDEN[0]
+        return real_cuda(x, w1, *rest)
+
+    # (a) the index, its surrogate on the card, one mixed batch
+    index = ArchiveIndex.build([index_root])
+    x_idx, _ = index.training_set()
+    n_rows = x_idx.shape[0]
+    log(f"recommend: index over {len(index.cells)} cells, {n_rows} "
+        f"training rows, {len(index.candidates)} candidates")
+    ops.reset_launch_counts()
+    sync()
+    t = time.time()
+    policy_mlp.fused_mlp_cuda = counting_cuda
+    try:
+        rec = Recommender(index, device=device)
+    finally:
+        policy_mlp.fused_mlp_cuda = real_cuda
+    sync()
+    build_s, build_counts = time.time() - t, ops.launch_counts()
+    log(f"recommend: Recommender build (400 Adam steps + the calibration) "
+        f"{build_s:.3f} s on {device}, resid_var "
+        f"{rec.surrogate.resid_var:.6f}; launches {json.dumps(build_counts)}")
+    if on_card and build_counts["fused_mlp"] <= 0:
+        fail("recommend: the index fit launched no fused_mlp")
+    ws = [rec.surrogate.params[k][kk] for k in ("l1", "l2", "head")
+          for kk in ("w", "b")]
+    # the serving widths at the index's N (its own rows) and ragged N
+    serve_err = 0.0
+    for b in (n_rows, max(1, n_rows - 7), 333):
+        x = np.random.default_rng(b).normal(size=(b, 82)).astype(np.float32)
+        x[:min(b, n_rows)] = x_idx[:b]
+        x = torch.as_tensor(x, device=device)
+        with torch.no_grad():
+            got = policy_mlp.fused_mlp(x, *ws)
+            want = policy_mlp.fused_mlp_plain(x, *ws)
+        err = float((got - want).abs().max())
+        serve_err = max(serve_err, err)
+        log(f"parity fused_mlp [{b},82]->32->16->3 (the index "
+            f"surrogate's fitted weights): max abs err {err:.3e}")
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail(f"fused_mlp at the serving widths, B={b}, disagrees with "
+                 f"the plain version (max abs err {err:.3e})")
+    cpu_params = {k: {kk: v.cpu() for kk, v in d.items()}
+                  for k, d in rec.surrogate.params.items()}
+    cpu_rec = Recommender(index, fit_steps=0, params=cpu_params,
+                          device="cpu")
+    queries = mixed_queries(index, n_queries, SEED)
+    captured = []
+    real_score = sur.score_query_batch
+
+    def capturing(*args):
+        captured.append(args)
+        return real_score(*args)
+
+    ops.reset_launch_counts()
+    d0 = rec.n_dispatches
+    sync()
+    t = time.time()
+    answers = rec.recommend_batch(queries)
+    batch_s = time.time() - t
+    paths["recommend"] = {k: build_counts[k] + v
+                          for k, v in ops.launch_counts().items()}
+    sur.score_query_batch = capturing
+    try:
+        cpu_answers = cpu_rec.recommend_batch(queries)
+    finally:
+        sur.score_query_batch = real_score
+    if rec.n_dispatches - d0 != 1 or cpu_rec.n_dispatches != 1:
+        fail(f"recommend: the mixed batch made {rec.n_dispatches - d0} "
+             "dispatches, not 1")
+    gaps = plain_score_gaps(*captured[0])
+    store6 = CampaignStore.open(index_root)
+    n_exact = n_tie = row = 0
+    for q, a, c in zip(queries, answers, cpu_answers):
+        if a.source != c.source or a.cell_id is None:
+            fail(f"recommend: {q} answered from {a.source} on the card, "
+                 f"{c.source} on the CPU")
+        if a.source == "archive":
+            n_exact += 1
+            if a.to_dict() != c.to_dict():
+                fail(f"recommend: archive answer to {q} differs from the "
+                     "CPU's")
+            if q.power_budget_mw == np.inf and not q.min_perf_gops \
+                    and not q.min_tok_s:
+                e = store6.load_archive(a.cell_id).select(*q.weights)
+                if not (np.array_equal(a.cfg, e.cfg)
+                        and a.ppa_score == e.ppa_score):
+                    fail(f"recommend: archive answer to {q} is not the "
+                         "cell archive's select")
+            continue
+        gap = gaps[row]
+        row += 1
+        if gap <= 1e-4:
+            n_tie += 1
+            continue
+        if not np.array_equal(a.cfg, c.cfg) or not np.allclose(
+                [a.power_mw, a.perf_gops, a.area_mm2],
+                [c.power_mw, c.perf_gops, c.area_mm2], rtol=1e-4):
+            fail(f"recommend: surrogate answer to {q} differs from the "
+                 f"CPU's (score gap {gap:.3e})")
+    d1 = rec.n_dispatches
+    exact_qs = [q for q, a in zip(queries, answers)
+                if a.source == "archive"]
+    rec.recommend_batch(exact_qs)
+    if rec.n_dispatches != d1:
+        fail("recommend: an all-exact batch made a dispatch")
+    log(f"recommend: {len(queries)} queries, {n_exact} exact (== the CPU "
+        f"recommender's, bitwise), {len(queries) - n_exact} by the "
+        f"surrogate in 1 dispatch ({n_tie} with the two best scores within"
+        f" 1e-4; the rest the CPU's picks, predictions rtol 1e-4); an "
+        f"all-exact batch of {len(exact_qs)}: 0 dispatches")
+    reps = []
+    for _ in range(5):
+        sync()
+        t = time.time()
+        rec.recommend_batch(queries)
+        reps.append(time.time() - t)
+    t = time.time()
+    for q in queries[:n_seq]:
+        rec.recommend(q)
+    seq_s = (time.time() - t) / n_seq
+    per_q = float(np.median(reps)) / len(queries)
+    log(f"recommend: fused batch of {len(queries)}: first {batch_s:.4f} s, "
+        f"median of 5 {float(np.median(reps)):.4f} s ({1e6 * per_q:.2f} "
+        f"us a query); {n_seq} sequential recommend calls "
+        f"{1e3 * seq_s:.4f} ms a query; ratio {seq_s / per_q:.1f}x "
+        "(recorded, not gated)")
+    if timed is not None:
+        x_dev = torch.as_tensor(x_idx, device=device)
+        timed(("fused_mlp", "serve"), f"[{n_rows},82]->32->16->3",
+              lambda: policy_mlp.fused_mlp_cuda(x_dev, *ws),
+              lambda: policy_mlp.fused_mlp_plain(x_dev, *ws),
+              mlp_work(n_rows, 3, 4, 32, 16), unit="tf32x3")
+        args = captured[0]
+        card_args = [rec.surrogate.params] + [a.to(device)
+                                              for a in args[1:]]
+        qn, cn = args[1].shape[0], args[2].shape[0]
+        card_ms = device_ms(lambda: sur.score_query_batch(*card_args),
+                            calls=5, replays=4)
+        t = time.perf_counter()
+        for _ in range(5):
+            sur.score_query_batch(*args)
+        cpu_ms = 1e3 * (time.perf_counter() - t) / 5
+        bnd, by, term = bound_ms(*query_work(qn, cn, 52, 30, 32, 16))
+        log(f"time score_query_batch Q={qn} C={cn}: card {card_ms:.5f} ms "
+            f"(device, CUDA graph) bound {bnd:.5f} ms ({by}, {term}); "
+            f"CPU {cpu_ms:.3f} ms; plain PyTorch products, no kernel")
+
+    # the HTTP server, in a thread on a free local port
+    box, ready = {}, threading.Event()
+    th = threading.Thread(target=recommend_server, args=([index_root],),
+                          kwargs=dict(host="127.0.0.1", port=0,
+                                      recommender=rec,
+                                      on_ready=lambda srv: (box.update(
+                                          srv=srv), ready.set())),
+                          daemon=True)
+    th.start()
+    if not ready.wait(60):
+        fail("serve: the recommendation server did not come up")
+    url = f"http://127.0.0.1:{box['srv'].server_port}"
+    sample = queries[:128]
+
+    def post(body: bytes):
+        req = urllib.request.Request(
+            url + "/recommend", data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e)
+
+    try:
+        body = json.dumps({"queries": [query_json(q)
+                                       for q in sample]}).encode()
+        t = time.time()
+        code, reply = post(body)
+        rtt = time.time() - t
+        want = rec.recommend_batch(sample)
+        if code != 200 or reply["dispatches"] != 1 or [
+                a["source"] for a in reply["answers"]] != [
+                a.source for a in want] or any(
+                a["source"] == "archive" and a != w.to_dict()
+                for a, w in zip(reply["answers"], want)):
+            fail(f"serve: POST /recommend answered {code}, "
+                 f"{reply.get('dispatches')} dispatches, or answers that "
+                 "differ from the recommender's")
+        health = json.load(urllib.request.urlopen(url + "/healthz",
+                                                  timeout=60))
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        bad, err = post(b"{not json")
+        if health["status"] != "ok" or health["cells"] != len(index.cells) \
+                or 'repro_serve_answers_total{source="archive"}' not in \
+                metrics or bad != 400 or not err["error"]["message"]:
+            fail(f"serve: /healthz {health}, a malformed body gave {bad}")
+    finally:
+        box["srv"].shutdown()
+        th.join(60)
+    log(f"serve: POST /recommend of {len(sample)} queries round trip "
+        f"{1e3 * rtt:.3f} ms, 1 dispatch, answers == the recommender's; "
+        f"/healthz ok ({health['cells']} cells, {health['candidates']} "
+        "candidates); /metrics carries serve_answers_total; a malformed "
+        f"body: 400 {err['error']['type']}")
+
+    # (b) transfer: the grid warm from phase 6's run directory, cold, and
+    # warm as a W = 2 fleet
+    grid_path = os.path.join(root, "transfer_grid.json")
+    with open(grid_path, "w") as f:
+        json.dump(grid, f)
+
+    def drive(label, extra):
+        croot = os.path.join(root, label)
+        ops.reset_launch_counts()
+        sync()
+        t = time.time()
+        dse.main(["--campaign", grid_path, "--campaign-root", croot,
+                  "--device", device] + extra)
+        sync()
+        wall, counts = time.time() - t, ops.launch_counts()
+        store = CampaignStore.open(os.path.join(croot, grid["name"]))
+        if not store.all_done():
+            fail(f"transfer {label}: the campaign did not finish")
+        log(f"transfer {label}: {len(store.manifest['cells'])} cells, wall "
+            f"{wall:.3f} s; launches in this process {json.dumps(counts)}")
+        return store, wall, counts
+
+    policy_mlp.fused_mlp_cuda = counting_cuda
+    try:
+        warm, warm_wall, paths["transfer"] = drive(
+            "warm", ["--transfer-from", index_root])
+    finally:
+        policy_mlp.fused_mlp_cuda = real_cuda
+    missing = [k for k in ("actor_moe", "sumtree", "sumtree_sample",
+                           "fused_mlp") if paths["transfer"][k] <= 0]
+    if on_card and missing:
+        fail(f"transfer: {missing} never launched")
+    spec = CampaignSpec.from_dict(grid)
+    cpu_spec = transfer_mod.with_transfer(spec, [index_root], device="cpu")
+    if cpu_spec.to_dict() != warm.manifest["spec"]:
+        fail("transfer: the priorities differ from a CPU with_transfer")
+    cpu_store = CampaignStore.create(os.path.join(root, "cpu-prepare"),
+                                     cpu_spec)
+    cpu_tr = transfer_mod.prepare_store(cpu_store, device="cpu")
+    tr = warm.manifest["transfer"]
+    cost_w = cm.load_cost_model(warm.root, device="cpu").cost_w
+    if cpu_tr["donors"] != tr["donors"] or cpu_tr["roots"] != tr["roots"] \
+            or not np.array_equal(cost_w, cm.load_cost_model(
+                cpu_store.root, device="cpu").cost_w):
+        fail("transfer: the donors or cost_w differ from a CPU "
+             "prepare_store")
+    log(f"transfer: priorities {json.dumps(cpu_spec.priorities)}, donors "
+        f"and cost_w ({cost_w.shape[0]} weights) == a CPU with_transfer + "
+        f"prepare_store, bitwise; cost model {json.dumps(tr['cost_model'])}"
+        f" on {device}")
+    n_seed = 0
+    for batch in plan_cached(warm.spec):
+        wl = extract(get_config(batch.arch), seq_len=grid["seq_len"],
+                     batch=grid["batch"], phase=batch.phase,
+                     dtype=batch.dtype)
+        ws_b = transfer_mod.load_warm_start(warm, batch, wl, device=device)
+        for cell, seed_cell in zip(batch.cells, ws_b["cells"]):
+            if not seed_cell:
+                continue
+            ents = seed_cell["entries"]
+            hp = cell.mode == "high_perf"
+            node = torch.as_tensor(an.node_vector(
+                node_params(cell.node_nm, low_power=not hp), high_perf=hp))
+            with torch.no_grad():
+                m = an.evaluate(cs.project(torch.as_tensor(np.stack(
+                    [e.cfg for e in ents]))), torch.as_tensor(
+                    np.asarray(wl.features, np.float32)),
+                    node.expand(len(ents), node.shape[0])).numpy()
+            got = np.array([[e.power_mw, e.perf_gops, e.area_mm2, e.tok_s,
+                             e.ppa_score] for e in ents])
+            cols = [an.M_IDX[n] for n in ("power_mw", "perf_gops",
+                                          "area_mm2", "tok_s", "ppa_score")]
+            if (m[:, an.M_IDX["feasible"]] != 1.0).any() or not \
+                    np.allclose(got, m[:, cols], rtol=1e-5):
+                fail(f"transfer: {cell.cell_id}'s seeded frontier "
+                     "disagrees with the plain CPU evaluator")
+            n_seed += len(ents)
+    log(f"transfer: {n_seed} seeded frontier entries re-evaluated on the "
+        "CPU: feasible, rtol 1e-5")
+    cold, cold_wall, cold_counts = drive("cold", [])
+    for cid in sorted(warm.manifest["cells"]):
+        row = []
+        for st in (warm, cold):
+            ents = st.load_archive(cid).entries
+            row.append((st.load_summary(cid)["ppa_score"],
+                        min((e.episode for e in ents), default=None)))
+        log(f"transfer {cid}: best ppa_score warm {row[0][0]} cold "
+            f"{row[1][0]}; first frontier episode warm {row[0][1]} cold "
+            f"{row[1][1]}")
+    fleet, fleet_wall, _ = drive(
+        "fleet", ["--transfer-from", index_root, "--workers", "2"])
+    if campaign_fingerprint(fleet) != campaign_fingerprint(warm):
+        fail("transfer: the warm W=2 fleet's fingerprint differs from the "
+             "W=1 warm run's")
+    workers = worker_roots(fleet.root)
+    if len(workers) != 2 or any(
+            CampaignStore.open(w).manifest.get("transfer") !=
+            fleet.manifest["transfer"] for w in workers):
+        fail("transfer: a worker's manifest lacks the top-level transfer "
+             "record")
+    paths["transfer_fleet"] = {
+        k: sum(int(snapshot_value((read_lease(w) or {}).get("metrics"),
+                                  "counters", "kernel_launches_total",
+                                  {"kernel": k}, default=0))
+               for w in workers) for k in ops.KERNELS}
+    log(f"transfer: warm W=2 fleet fingerprint == the W=1 warm run's, both "
+        f"workers mirror the transfer record; walls warm {warm_wall:.3f} s,"
+        f" cold {cold_wall:.3f} s, warm W=2 {fleet_wall:.3f} s; fleet "
+        f"launches {json.dumps(paths['transfer_fleet'])}")
+    log(f"fused_mlp at the serving widths: {serve_launches[0]} launches "
+        "(the index build and the warm run's cost-model fits)")
+    return paths, dict(rows=n_rows, max_abs_err=serve_err,
+                       launches=serve_launches[0])
+
+
+def phase_mark(n: int, name: str, _t0=time.time()) -> None:
+    """Log when phase ``n`` starts, in seconds since the script started."""
+    log(f"phase {n} ({name}) starts at {time.time() - _t0:.1f} s")
+
+
 def main() -> None:
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -732,6 +1238,7 @@ def main() -> None:
         f"{torch.backends.cudnn.allow_tf32}")
 
     # ---- 2. build ---------------------------------------------------------
+    phase_mark(2, "build")
     t0 = time.time()
     floor_build = start_floor_build(build.nvcc(), build.NVCC_FLAGS, OUT)
     lib_path = build.build(verbose=True, force=True)
@@ -741,6 +1248,7 @@ def main() -> None:
     build.library()
 
     # ---- 3. parity on the card -------------------------------------------
+    phase_mark(3, "parity on the card")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     actor = sac.create(SEED, dev).params.actor
     sur_params = sur.Surrogate.create(82, seed=SEED + 2, device=dev).params
@@ -940,6 +1448,23 @@ def main() -> None:
                     got.float(), want.float(), rtol=rtol, atol=atol):
                 fail(f"fused_mlp [{b},82]->{d_out} {dtype} disagrees with "
                      f"the plain version (max abs err {err:.3e})")
+    # fused_mlp at the index surrogate's serving widths, 82 -> 32 -> 16 ->
+    # 3, before anything uses them (phase 12 holds them again at the
+    # index's training-set size)
+    serve_ws = [torch.randn(shape, generator=gen, device=dev) * 0.3
+                for shape in ((82, 32), (32,), (32, 16), (16,), (16, 3),
+                              (3,))]
+    for b in (1, 17, 333, 4225):
+        x = torch.randn((b, 82), generator=gen, device=dev)
+        with torch.no_grad():
+            got = policy_mlp.fused_mlp_cuda(x, *serve_ws)
+            torch.cuda.synchronize()
+            want = policy_mlp.fused_mlp_plain(x, *serve_ws)
+        err = float((got - want).abs().max())
+        log(f"parity fused_mlp [{b},82]->32->16->3: max abs err {err:.3e}")
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail(f"fused_mlp [{b},82]->32->16->3 disagrees with the plain "
+                 f"version (max abs err {err:.3e})")
     # the batched env step on the card against the same step on the CPU
     wl = extract(get_config("llama3.1-8b"), seq_len=2048, batch=3)
     env_gpu = VecDSEEnv(wl, NODE, batch=N_ENVS, seed=SEED, device=dev)
@@ -1032,6 +1557,7 @@ def main() -> None:
                          f"the plain version (max abs err {err:.3e})")
 
     # ---- 4. timing --------------------------------------------------------
+    phase_mark(4, "timing")
     timings = {}
     nbytes = lambda tree: sum(t.numel() * 4 for t in tree_leaves(tree))
 
@@ -1172,6 +1698,7 @@ def main() -> None:
           plain_calls=2)
 
     # ---- 5. the main path -------------------------------------------------
+    phase_mark(5, "the main path")
     results = []
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1276,6 +1803,7 @@ def main() -> None:
         n_envs=N_ENVS, device="cuda"))
 
     # ---- 6. the campaign path ---------------------------------------------
+    phase_mark(6, "the campaign path")
     # the paper's grid through the port's CLI
     import shutil
     shutil.rmtree(CAMPAIGN_ROOT, ignore_errors=True)
@@ -1392,6 +1920,7 @@ def main() -> None:
         lanes_per_cell=GRID["lanes"], device="cuda")[0])
 
     # ---- 7. kill/resume on the card --------------------------------------
+    phase_mark(7, "kill/resume on the card")
     kill_path = os.path.join(CAMPAIGN_ROOT, "kill_grid.json")
     with open(kill_path, "w") as f:
         json.dump(KILL_GRID, f)
@@ -1443,6 +1972,7 @@ def main() -> None:
         f"uninterrupted run's; frontier sizes {json.dumps(sizes)}")
 
     # ---- 8. LM serving -----------------------------------------------------
+    phase_mark(8, "LM serving")
     # each run through serve's own inputs + generate, the kernels' launches
     # counted around it; then the same weights and prompts with the two
     # kernels' plain versions put in their place (the package has no switch
@@ -1581,6 +2111,7 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the LM path")
 
     # ---- 9. the scenario path ----------------------------------------------
+    phase_mark(9, "the scenario path")
     def hold_slo_picks(label, store, batch_results, grid):
         """Where a cell found designs, its SLO pick, ``ttft_ms`` and
         ``slo_ok`` recomputed on the CPU from its stored frontier: each
@@ -1689,6 +2220,7 @@ def main() -> None:
     same_frontiers("slo grid", held_store, plain_store)
 
     # ---- 10. the scalar engine and the baselines ---------------------------
+    phase_mark(10, "the scalar engine and the baselines")
     # through dse.run, as the CLI's --engine scalar and --method random|grid
     # drive them; the launch counts set to 0 before and read after each
     scalar = {}
@@ -1753,13 +2285,21 @@ def main() -> None:
         "baselines' frontiers and picks equal a CPU run's")
 
     # ---- 11. devices, telemetry and fleets ----------------------------------
+    phase_mark(11, "devices, telemetry and fleets")
     fleet_counts = devices_telemetry_fleets(
         "cuda", wl, single, os.path.join(CAMPAIGN_ROOT, "paper_grid.json"),
         GRID["name"], os.path.join(CAMPAIGN_ROOT, GRID["name"]), kill_path,
         KILL_GRID["name"], os.path.join(kill_roots[0], KILL_GRID["name"]),
         os.path.join(CAMPAIGN_ROOT, "phase11"), camp_wall, camp_util)
 
-    # ---- 12. results ------------------------------------------------------
+    # ---- 12. recommend serving and cross-campaign transfer ------------------
+    phase_mark(12, "recommend serving and cross-campaign transfer")
+    phase12, serve = recommend_transfer(
+        "cuda", os.path.join(CAMPAIGN_ROOT, GRID["name"]),
+        os.path.join(CAMPAIGN_ROOT, "phase12"), timed=timed)
+
+    # ---- 13. results ------------------------------------------------------
+    phase_mark(13, "results")
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
     # batch's (B = 448; 256 samples per SAC update) with the campaign's;
@@ -1794,7 +2334,17 @@ def main() -> None:
             launches_by_path={path: c.get(name, 0) for path, c in (
                 ("single", counts), ("campaign", camp_counts),
                 ("scenario", scen_counts), ("scalar", scalar["sac"][1]),
-                ("lm", lm_counts), *fleet_counts.items())}))
+                ("lm", lm_counts), *fleet_counts.items(),
+                *phase12.items())}))
+    # fused_mlp also at the index surrogate's serving shape (phase 12)
+    ms, plain, bnd, by, term, call, library_ms = timings[("fused_mlp",
+                                                          "serve")]
+    next(k for k in kernels if k["name"] == "fused_mlp")["serve"] = dict(
+        shape=f"[{serve['rows']},82]->32->16->3",
+        max_abs_err=serve["max_abs_err"], launches=serve["launches"],
+        ms=ms, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, bound_term=term, library_ms=library_ms,
+        call_ms=call)
     print(card, flush=True)     # again here, so that a short tail holds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,12 @@ sockets, just the leases that liveness already requires.  Each worker also
 publishes its kernels' launch counts (``kernel_launches_total``, labelled
 by kernel) in that snapshot, so the final lease shows which kernels the
 worker ran.  The run directory is the reference's, file for file, so either
-package reads the other's fleets.  Cross-campaign transfer (warm-start
-donors, cost-model priorities) is not ported yet (ROADMAP A9).
+package reads the other's fleets.  A transfer campaign
+(``--transfer-from``) records its warm-start donors and fits its cost model
+in the parent before any worker spawns (``transfer.prepare_store``), each
+worker store mirrors that top-level record verbatim, and the deal is
+longest-predicted-first over ``spec.priorities``: a warm W-worker fleet
+derives the W = 1 run's warm start.
 """
 from __future__ import annotations
 
@@ -148,13 +152,19 @@ def record_event(store: CampaignStore, kind: str, **fields) -> Dict:
 
 # ------------------------------------------------------------- fleet plan
 def create_fleet(root: str, spec: CampaignSpec, workers: int, *,
-                 lease_ttl_s: float = DEFAULT_LEASE_TTL_S) -> CampaignStore:
+                 lease_ttl_s: float = DEFAULT_LEASE_TTL_S,
+                 device="cuda") -> CampaignStore:
     """Create the top-level store + record the deterministic deal.
 
     ``lease_ttl_s`` is recorded in the fleet block so workers (which see
     only the shared run directory) know their heartbeat cadence and the
-    supervisor knows when a silent worker is dead."""
+    supervisor knows when a silent worker is dead.  A transfer spec's
+    donors are recorded (and its cost model fitted on ``device``) here,
+    before any worker is spawned."""
     store = CampaignStore.create(root, spec)
+    if spec.transfer_from:
+        from repro_torch.campaign import transfer as transfer_mod
+        transfer_mod.prepare_store(store, device=device)
     assign = shard_batches(plan_cached(spec), workers,
                            priorities=spec.priorities)
     store.manifest["fleet"] = dict(
@@ -181,7 +191,8 @@ def redeal_batches(store: CampaignStore, batch_ids: List[str],
 
 
 def plan_resume(root: str, workers: Optional[int] = None, *,
-                lease_ttl_s: Optional[float] = None) -> CampaignStore:
+                lease_ttl_s: Optional[float] = None,
+                device="cuda") -> CampaignStore:
     """Fleet-scope resume: reconcile what every prior worker finished,
     re-deal the still-pending batches to ``workers`` fresh worker slots,
     and relocate any orphan in-flight checkpoints to the slot that now
@@ -192,6 +203,12 @@ def plan_resume(root: str, workers: Optional[int] = None, *,
     upgraded to a fleet.
     """
     store = CampaignStore.open(root)
+    if store.spec.transfer_from:
+        # crash-safe: a kill between CampaignStore.create and prepare_store
+        # leaves a transfer campaign without its recorded donors;
+        # prepare_store is a no-op once they are recorded
+        from repro_torch.campaign import transfer as transfer_mod
+        transfer_mod.prepare_store(store, device=device)
     reconcile(store)
     # snapshot the fleet block only AFTER reconcile: it just updated
     # wall_s / worker_stats in place, and a stale copy would clobber them
@@ -335,6 +352,11 @@ def _open_worker_store(root: str, idx: int, top: CampaignStore,
             seed=top.manifest["seed"],
             episodes_per_cell=top.manifest["episodes_per_cell"],
             spec=top.manifest["spec"], cells={}))
+    if "transfer" in top.manifest:
+        # execute_batch resolves warm-start donors against the worker's
+        # store: mirror the top-level record verbatim so a worker derives
+        # the warm start a W=1 run would
+        w.manifest["transfer"] = top.manifest["transfer"]
     for cid in sorted(c.cell_id for b in batches for c in b.cells):
         rec = top.manifest["cells"].get(cid, {})
         mine = w.manifest["cells"].get(cid, {})

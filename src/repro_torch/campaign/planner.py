@@ -11,8 +11,9 @@ The spec keeps every field of the reference's, so either package reads the
 other's manifests.  Scenario axes (``dtypes``, ``phases``) multiply the
 grid, with the default scenario's batches first; ``slo`` turns on
 SLO-aware selection; ``devices`` and ``hosts`` are validated as the
-reference validates them.  A spec that asks for what is not ported yet
-(``transfer_from``, ``priorities``) is refused with an error naming it.
+reference validates them; ``transfer_from`` names donor run directories
+(``repro_torch.campaign.transfer``) and ``priorities`` orders the batches'
+execution.
 """
 from __future__ import annotations
 
@@ -88,14 +89,6 @@ class CellBatch:
                 for n in self.node_nms]
 
 
-# spec fields whose non-default values need a part of the system that is
-# not ported yet, and the part each one needs
-_NOT_PORTED = {
-    "transfer_from": "cross-campaign transfer (campaign/transfer)",
-    "priorities": "cost-model batch priorities (campaign/transfer)",
-}
-
-
 @dataclasses.dataclass
 class CampaignSpec:
     """Grid + budget of one campaign (the ``--campaign grid.json`` payload).
@@ -127,7 +120,14 @@ class CampaignSpec:
     # chunked step is bitwise the unchunked one, so two specs that differ
     # only in devices search identically.
     devices: Optional[int] = None
+    # cross-campaign transfer (repro_torch.campaign.transfer): donor run
+    # directories whose archives and weights warm-start this campaign's
+    # batches and train its cost model; recorded in the manifest so the
+    # fleet deal and --resume derive the same plan
     transfer_from: Optional[List[str]] = None
+    # predicted cost per CellBatch.key (transfer.with_transfer fills it):
+    # plan() runs batches by descending cost; batch indices, and with
+    # them the per-batch seeds, stay in spec order
     priorities: Optional[Dict[str, float]] = None
     dtypes: List[str] = dataclasses.field(
         default_factory=lambda: [DEFAULT_DTYPE])
@@ -167,6 +167,20 @@ class CampaignSpec:
                              f"names (got {self.hosts!r})")
         if self.devices is not None and self.devices < 1:
             raise ValueError(f"devices must be >= 1 (got {self.devices})")
+        if self.transfer_from is not None and (
+                not isinstance(self.transfer_from, list)
+                or not self.transfer_from
+                or any(not isinstance(r, str) or not r.strip()
+                       for r in self.transfer_from)):
+            raise ValueError(f"transfer_from must be a non-empty list of "
+                             f"run directories (got {self.transfer_from!r})")
+        if self.priorities is not None and (
+                not isinstance(self.priorities, dict)
+                or any(not isinstance(v, (int, float))
+                       or isinstance(v, bool)
+                       for v in self.priorities.values())):
+            raise ValueError(f"priorities must map batch keys to numbers "
+                             f"(got {self.priorities!r})")
         bad_dt = [d for d in self.dtypes if d not in DTYPES]
         if bad_dt or not self.dtypes:
             raise ValueError(f"unknown dtypes {bad_dt or self.dtypes}; "
@@ -194,10 +208,6 @@ class CampaignSpec:
                     raise ValueError(
                         f"slo targets must be positive numbers keyed "
                         f"'ttft_ms'/'tok_s' (got {g!r})")
-        for name, part in _NOT_PORTED.items():
-            if getattr(self, name) is not None:
-                raise ValueError(f"{name}: {part} is not ported to "
-                                 "repro_torch yet")
 
     @property
     def n_cells(self) -> int:
@@ -268,6 +278,11 @@ def plan(spec: CampaignSpec) -> List[CellBatch]:
     the per-batch seed ``spec.seed + 1000 * index``) follows spec order, so
     with the default dtype and phase listed first the default scenario's
     batches come first and keep the seeds of a grid without scenario axes.
+
+    With ``spec.priorities`` (predicted cost per ``CellBatch.key``) the
+    list is ordered by descending cost, ties by ``batch_id``; ``index`` is
+    still assigned in spec order, so the per-batch seeds, and with them
+    every fingerprint, are the unprioritised plan's.
     """
     per_batch = max(1, spec.max_envs // spec.lanes)
     out: List[CellBatch] = []
@@ -281,6 +296,10 @@ def plan(spec: CampaignSpec) -> List[CellBatch]:
                             index=len(out), arch=w, mode=m,
                             node_nms=tuple(nodes[i:i + per_batch]),
                             dtype=dt, phase=ph))
+    if spec.priorities:
+        pr = spec.priorities
+        out = sorted(out, key=lambda b: (-float(pr.get(b.key, 0.0)),
+                                         b.batch_id))
     return out
 
 

@@ -17,43 +17,19 @@ best-PPA, cross-node adaptation, scaling and fleet worker tables.
   supervision event log (evictions, mid-run re-deals, stale-leg
   closures).
 
-The serving-side index report comes with the recommend server.
+``write_index_report`` renders the archive index the recommendation path
+serves (``index.{json,md}``: frontier size and mode-default pick a cell).
 """
 from __future__ import annotations
 
 import json
 import os
-import re
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.campaign.planner import (DEFAULT_DTYPE, DEFAULT_PHASE,
-                                          scenario_suffix)
-
-# mode-default (w_perf, w_power, w_area) profiles of the reference's
-# recommend server, which the scaling fits select with
-MODE_WEIGHTS = {"high_perf": (0.4, 0.4, 0.2), "low_power": (0.2, 0.6, 0.2)}
-# the optional scenario suffix's last ``__`` segment
-_SCENARIO_SEG = re.compile(r"^(native|fp8|int8)-(decode|prefill)$")
-
-
-def split_scenario(cell_id: str) -> Tuple[str, str, str]:
-    """``<base>[__<dtype>-<phase>]`` -> (base_cell_id, dtype, phase)."""
-    head, _, last = cell_id.rpartition("__")
-    m = _SCENARIO_SEG.match(last) if head else None
-    if m:
-        return head, m.group(1), m.group(2)
-    return cell_id, DEFAULT_DTYPE, DEFAULT_PHASE
-
-
-def split_cell_id(cell_id: str) -> Tuple[str, int, str]:
-    """``<arch>__<node>nm__<mode>[__<dtype>-<phase>]`` ->
-    (arch, node_nm, mode)."""
-    base, _, _ = split_scenario(cell_id)
-    arch, node_s, mode = base.rsplit("__", 2)
-    return arch, int(node_s[:-2]), mode
+from repro_torch.campaign.planner import scenario_suffix
 
 CELL_COLS = ("cell_id", "mesh", "fetch", "vlen", "wmem_kb", "dmem_kb",
              "freq_mhz", "tok_s", "power_mw", "area_mm2", "ppa_score",
@@ -62,6 +38,8 @@ CELL_COLS = ("cell_id", "mesh", "fetch", "vlen", "wmem_kb", "dmem_kb",
 ADAPT_COLS = ("node_nm", "mesh", "fetch", "vlen", "wmem_kb", "dmem_kb",
               "freq_mhz", "tok_s", "power_mw", "area_mm2", "ppa_score")
 WORKER_COLS = ("worker", "cells", "episodes", "busy_s", "util_pct")
+INDEX_COLS = ("cell_id", "frontier", "power_mw", "perf_gops", "area_mm2",
+              "tok_s", "ppa_score")
 
 
 def _fmt(v) -> str:
@@ -185,6 +163,8 @@ def scaling_fits(store) -> Dict:
     qualitatively.  Returns ``{"fits": {...}, "cells": {...}}`` where
     ``cells`` carries each cell's full frontier arrays (the fit's raw
     data, JSON-safe)."""
+    from repro_torch.launch.recommend import (MODE_WEIGHTS, split_cell_id,
+                                              split_scenario)
     groups: Dict = {}
     cells: Dict[str, Dict] = {}
     for cid in sorted(store.manifest["cells"]):
@@ -295,4 +275,40 @@ def write_reports(store, out_dir: Optional[str] = None) -> Dict[str, str]:
             if events:
                 f.write(f"\n## Supervision events ({len(events)})\n\n")
                 f.write("\n".join(format_event(e) for e in events) + "\n")
+    return paths
+
+
+def index_rows(cells: Dict) -> List[Dict]:
+    """One row per archive-index cell: frontier size + the mode-default
+    scalarized ``select()`` winner the recommendation path serves."""
+    from repro_torch.launch.recommend import MODE_WEIGHTS, split_cell_id
+
+    rows = []
+    for cid in sorted(cells):
+        ar = cells[cid]
+        _, _, mode = split_cell_id(cid)
+        e = ar.select(*MODE_WEIGHTS.get(mode, MODE_WEIGHTS["high_perf"]))
+        row = dict(cell_id=cid, frontier=len(ar))
+        if e is not None:
+            row.update(power_mw=e.power_mw, perf_gops=e.perf_gops,
+                       area_mm2=e.area_mm2, tok_s=e.tok_s,
+                       ppa_score=e.ppa_score)
+        rows.append(row)
+    return rows
+
+
+def write_index_report(store, cells: Dict,
+                       out_dir: Optional[str] = None) -> Dict[str, str]:
+    """Emit the archive-index serving table (JSON + markdown)."""
+    out_dir = out_dir or os.path.join(store.root, "report")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = index_rows(cells)
+    paths = {"index_json": os.path.join(out_dir, "index.json"),
+             "index_md": os.path.join(out_dir, "index.md")}
+    with open(paths["index_json"], "w") as f:
+        json.dump(rows, f, indent=1, allow_nan=False)
+    with open(paths["index_md"], "w") as f:
+        f.write(f"# Campaign `{store.manifest['name']}` — archive index "
+                f"({len(rows)} cells served)\n\n")
+        f.write(markdown_table(rows, INDEX_COLS))
     return paths

@@ -80,20 +80,33 @@ def cell_summary(cell: Cell, res: SearchResult) -> Dict:
 
 def run_batch(store: CampaignStore, batch: CellBatch, workload: Workload,
               spec: CampaignSpec, device="cuda") -> List[SearchResult]:
-    """Run one mixed-node batch to completion (resuming any checkpoint);
-    the batch's final SAC/surrogate weights are snapshotted under
+    """Run one mixed-node batch to completion (resuming any checkpoint).
+
+    If the manifest records a warm-start donor for this batch
+    (``manifest["transfer"]``, written once by
+    ``repro_torch.campaign.transfer.prepare_store``), the donor's weights
+    and re-evaluated frontier seed the fresh search state; the seed comes
+    from the recorded donor alone, so fleet workers and a W = 1 run derive
+    the same one, and a checkpoint resume bypasses it.  The batch's final
+    SAC/surrogate weights are snapshotted under
     ``<root>/model/weights/<batch_id>/``."""
     sc = SearchConfig(episodes=spec.episodes,
                       seed=spec.seed + 1000 * batch.index,
                       surrogate_gate=spec.surrogate_gate,
                       screen_k=spec.screen_k,
                       gate_threshold=spec.gate_threshold)
+    warm = None
+    if (store.manifest.get("transfer") or {}).get("donors", {}) \
+            .get(batch.key):
+        from repro_torch.campaign import transfer as transfer_mod
+        warm = transfer_mod.load_warm_start(store, batch, workload,
+                                            device=device)
     return run_search_cells(
         workload, list(batch.node_nms), high_perf=batch.mode == "high_perf",
         search=sc, lanes_per_cell=spec.lanes,
         checkpoint_dir=store.ckpt_dir(batch.batch_id),
         checkpoint_every=spec.checkpoint_every, resume=True,
-        devices=spec.devices,
+        devices=spec.devices, warm_start=warm,
         save_weights_to=store.weights_dir(batch.batch_id),
         scenario=batch_scenario(batch, spec), device=device)
 
@@ -202,6 +215,12 @@ def run_campaign(root: str, spec: Optional[CampaignSpec] = None, *,
         if spec is None:
             raise ValueError("a CampaignSpec is required to start a campaign")
         store = CampaignStore.create(root, spec)
+    if spec.transfer_from:
+        # idempotent: records the donors and fits/persists the cost model
+        # once; on resume a no-op unless a crash landed between the store's
+        # creation and the transfer record
+        from repro_torch.campaign import transfer as transfer_mod
+        transfer_mod.prepare_store(store, progress=progress, device=device)
     t0 = time.time()
     n_done = 0
     # single-process campaigns get their own trace at <root>/trace.jsonl;

@@ -104,6 +104,31 @@ def sac_state_from_flat(flat: Mapping[str, np.ndarray], prefix: str = "sac",
                             step=tree_to_torch(tree["step"], device))
 
 
+def surrogate_params(tree: Mapping, device="cpu") -> Dict:
+    """A reference surrogate's parameters (``l1``, ``l2``, ``head``, each
+    ``{w, b}``; any hidden widths: the online (128, 64) net or the index's
+    (32, 16) one), as nested numpy arrays or under ``sur_params/`` in a
+    flat checkpoint layout -> the port's dict of float32 tensors on
+    ``device``, each leaf its own contiguous allocation (the
+    ``fused_mlp`` kernel takes no views)."""
+    if any(isinstance(k, str) and k.startswith("sur_params/") for k in tree):
+        tree = unflatten(tree, "sur_params")
+    out = {}
+    for layer in ("l1", "l2", "head"):
+        w, b = np.asarray(tree[layer]["w"]), np.asarray(tree[layer]["b"])
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(f"surrogate layer {layer}: w {w.shape} and b "
+                             f"{b.shape} do not form a dense layer")
+        out[layer] = dict(w=tree_to_torch(w, device).contiguous(),
+                          b=tree_to_torch(b, device).contiguous())
+    if out["l1"]["w"].shape[1] != out["l2"]["w"].shape[0] \
+            or out["l2"]["w"].shape[1] != out["head"]["w"].shape[0]:
+        raise ValueError("surrogate layers do not chain: "
+                         + " -> ".join(str(tuple(out[k]["w"].shape))
+                                       for k in ("l1", "l2", "head")))
+    return out
+
+
 def world_model_state(params: Mapping, device="cpu") -> wm_mod.WMState:
     """Reference world-model parameters -> a fresh port ``WMState``."""
     p = tree_to_torch(params, device)

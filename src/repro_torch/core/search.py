@@ -33,8 +33,8 @@ registry taps fed once a dispatch from host values the loop already holds
 ``first_dispatch`` and ``checkpoint`` spans, the ``search`` counters and
 the ``run_search_cells`` span.  It reads clocks and counters only, so a
 traced search is bitwise an untraced one.  ``devices`` chunks the env
-batch over a ``batch_mesh`` (``core.env``).  Not ported yet:
-``warm_start`` (cross-campaign transfer).
+batch over a ``batch_mesh`` (``core.env``); ``warm_start`` seeds a fresh
+batch from a donor campaign (``campaign.transfer``).
 """
 from __future__ import annotations
 
@@ -347,10 +347,16 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
     ``devices``: chunk the B = cells x lanes batch of the env step over a
     ``batch_mesh(devices)`` (``VecDSEEnv``); the step is element-wise over
     the batch, so every result is bitwise the ``devices=None`` run's.
-    ``warm_start`` is not ported yet and raises."""
-    if warm_start is not None:
-        raise NotImplementedError(
-            "run_search_cells: warm_start is not ported to repro_torch yet")
+
+    ``warm_start`` (cross-campaign transfer, ``campaign.transfer``)
+    seeds a fresh start: ``warm_start["flat"]`` holds donor leaves named
+    ``sac/...`` and ``sur_params/...`` (a batch's final-weights snapshot,
+    of either package) that replace the SAC state and the surrogate's
+    parameters, each leaf a tensor of its own on the run's device; and
+    ``warm_start["cells"][c]`` may carry ``entries`` (re-evaluated donor
+    designs) and ``best`` (``(score, cfg, metrics)``) inserted into cell
+    c's archive and incumbent before the first reset.  A checkpoint
+    resume ignores it: the checkpoint already holds the warmed state."""
     sc = search or SearchConfig()
     dev = device_mod.resolve(device)
     n_cells = len(node_nms)
@@ -468,6 +474,23 @@ def run_search_cells(workload: Workload, node_nms: Sequence[int], *,
         start_t = int(manifest["step"])
         t_env = start_t * lanes
     else:
+        if warm_start is not None:
+            ws_flat = warm_start.get("flat")
+            if ws_flat:
+                sac_state = ckpt_mod.unflatten_from(ws_flat, "sac",
+                                                    sac_state)
+                surrogate.params = ckpt_mod.unflatten_from(
+                    ws_flat, "sur_params", surrogate.params)
+            for c, seed_cell in enumerate(warm_start.get("cells") or []):
+                if c >= n_cells or not seed_cell:
+                    continue
+                archives[c].insert_batch(list(seed_cell.get("entries")
+                                              or []))
+                sb = seed_cell.get("best")
+                if sb is not None:
+                    best[c] = (float(sb[0]),
+                               np.asarray(sb[1], np.float32).copy(),
+                               np.asarray(sb[2], np.float32).copy())
         s = env.reset()      # (B, 52)
 
     # ---- telemetry: read-only taps on the loop's own state ---------------

@@ -32,7 +32,12 @@ share one card), with ``--hosts``/``--launch-template`` for remote
 workers, ``--lease-ttl`` and ``--no-supervise``.  ``--devices N`` (alias
 ``--mesh N|auto``) chunks the env batch over the first N cards
 (``repro_torch.distributed.sharding``); more than the visible cards is a
-one-line error.  ``--transfer-from`` is not ported yet and is refused.
+one-line error.  ``--transfer-from ROOT`` (repeatable) warm-starts the new
+campaign from finished run directories of either package
+(``repro_torch.campaign.transfer``): donor weights and re-evaluated
+frontiers seed each batch, and a cost model fitted on ``--device`` orders
+the batches.  Finished archives answer design queries through
+``python -m repro_torch.launch.recommend`` and ``serve --recommend``.
 """
 from __future__ import annotations
 
@@ -165,11 +170,8 @@ def _resolve_devices(ap: argparse.ArgumentParser,
 
 def validate_args(ap: argparse.ArgumentParser,
                   a: argparse.Namespace) -> None:
-    """Reject invalid or not-yet-ported flag combinations up front with a
-    one-line error (the reference's checks)."""
-    if a.transfer_from:
-        ap.error("--transfer-from: not ported to repro_torch yet "
-                 "(cross-campaign transfer)")
+    """Reject invalid flag combinations up front with a one-line error
+    (the reference's checks)."""
     if a.n_envs < 1:
         ap.error(f"--n-envs must be >= 1 (got {a.n_envs})")
     if a.engine == "scalar" and a.n_envs != ap.get_default("n_envs"):
@@ -250,6 +252,16 @@ def validate_args(ap: argparse.ArgumentParser,
     if a.campaign and a.resume:
         ap.error("--campaign starts a new run and --resume continues an "
                  "existing one; pass exactly one")
+    if a.transfer_from and a.resume:
+        ap.error("--transfer-from: a resumed campaign keeps the warm-start "
+                 "donors recorded in its manifest; start a new campaign to "
+                 "change them")
+    if a.transfer_from and not a.campaign:
+        ap.error("--transfer-from warm-starts a campaign from completed "
+                 "run directories; pass --campaign with it")
+    for r in a.transfer_from or []:
+        if not os.path.isfile(os.path.join(r, "manifest.json")):
+            ap.error(f"--transfer-from: no campaign manifest under {r}")
     if a.campaign and not os.path.isfile(a.campaign):
         ap.error(f"--campaign grid file not found: {a.campaign}")
     if a.resume and not os.path.isfile(os.path.join(a.resume,
@@ -275,7 +287,7 @@ def run_campaign_cli(ap: argparse.ArgumentParser, a: argparse.Namespace,
     if a.resume:
         store = CampaignStore.open(a.resume)
         try:
-            store.spec          # a spec the port refuses raises here
+            store.spec          # an invalid spec raises here
         except (ValueError, TypeError) as e:
             ap.error(f"--resume {a.resume}: {e}")
         if a.workers is not None or store.manifest.get("fleet"):
@@ -304,6 +316,13 @@ def run_campaign_cli(ap: argparse.ArgumentParser, a: argparse.Namespace,
         overrides["devices"] = devices
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
+    if a.transfer_from:
+        from repro_torch.campaign import transfer as transfer_mod
+        try:
+            spec = transfer_mod.with_transfer(spec, a.transfer_from,
+                                              device=a.device)
+        except (ValueError, FileNotFoundError) as e:
+            ap.error(f"--transfer-from: {e}")
     root = os.path.join(a.campaign_root, spec.name)
     if a.workers is not None:
         # any explicit --workers (including 1) runs the fleet layout,
@@ -363,8 +382,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "unfinished batches are re-dealt)")
     ap.add_argument("--campaign-root", default="experiments/campaigns",
                     help="parent directory for new campaign run dirs")
-    # refused until cross-campaign transfer lands (see validate_args)
-    ap.add_argument("--transfer-from", action="append", default=None)
+    ap.add_argument("--transfer-from", action="append", default=None,
+                    metavar="ROOT",
+                    help="warm-start the new campaign from a completed "
+                         "campaign run directory (repeatable)")
     ap.add_argument("--workers", type=int, default=None,
                     help="shard the campaign's cell batches across this "
                          "many shared-nothing worker processes on "

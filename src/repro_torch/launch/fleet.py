@@ -580,14 +580,14 @@ def launch_fleet(root: str, spec=None, *, workers: Optional[int] = None,
         prepare_device(getattr(launcher, "device", device))
     if resume:
         store = distrib.plan_resume(root, workers,
-                                    lease_ttl_s=lease_ttl_s)
+                                    lease_ttl_s=lease_ttl_s, device=device)
     else:
         if spec is None:
             raise ValueError("a CampaignSpec is required to start a fleet")
         store = distrib.create_fleet(
             root, spec, int(workers or 1),
             lease_ttl_s=(lease_ttl_s if lease_ttl_s is not None
-                         else DEFAULT_LEASE_TTL_S))
+                         else DEFAULT_LEASE_TTL_S), device=device)
     fleet = store.manifest["fleet"]
     if launcher is None:
         cfg = fleet.get("launcher")

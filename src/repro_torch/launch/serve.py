@@ -1,6 +1,8 @@
-"""LM serving (port of the decode loop of ``repro.launch.serve``):
-a batched prefill, then greedy decoding over a batch of synthetic prompts,
-reporting the prefill time and decode tokens/s.
+"""Serving (port of ``repro.launch.serve``): LM decoding and the design
+recommendation server.
+
+LM serving: a batched prefill, then greedy decoding over a batch of
+synthetic prompts, reporting the prefill time and decode tokens/s.
 
     python -m repro_torch.launch.serve --arch llama3.1-8b --reduced \
         --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu
@@ -9,8 +11,14 @@ Every attention-only config of the zoo serves (``llama3.1-8b``,
 ``smolvlm``, ``smollm-135m``, ``qwen1.5-110b``, ``qwen2-72b``,
 ``mixtral-8x7b``, ``llama4-maverick-400b-a17b``), and ``jamba-v0.1-52b``
 with its Mamba layers; the rest (MLA, cross-attention, the Whisper encoder,
-xLSTM) is refused by name.  The reference's recommendation server
-(``--recommend``) is not ported yet.
+xLSTM) is refused by name.
+
+Recommendation server (:func:`recommend_server`): design queries over
+finished campaign run directories, answered by
+``repro_torch.launch.recommend.Recommender`` on ``--device``.
+
+    python -m repro_torch.launch.serve --recommend ROOT [--recommend ROOT2] \
+        [--host 127.0.0.1] [--port 8177] --device cuda|cpu
 """
 from __future__ import annotations
 
@@ -112,15 +120,189 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     return g.tokens, g.tok_s
 
 
+def recommend_server(roots, *, host: str = "127.0.0.1", port: int = 8177,
+                     recommender=None, poll: bool = False, on_ready=None,
+                     device="cuda"):
+    """Always-on Pareto-as-a-service endpoint over campaign archives.
+
+    GET ``/healthz`` reports index size + uptime; GET ``/metrics`` serves
+    the process metrics registry in Prometheus text format (request counts
+    per route, exact-vs-surrogate answer counters, fused dispatch count,
+    per-request latency histogram, bad-request count); POST ``/recommend``
+    takes ``{"queries": [{...}, ...]}`` (see
+    ``repro_torch.launch.recommend.Query``) and answers the whole batch
+    with all surrogate fallbacks in one ``score_query_batch`` call,
+    returning ``{"answers": [...], "dispatches": k}``.  A malformed body
+    (invalid JSON, a non-object, a non-list ``queries``) is a structured
+    400.  ``ThreadingHTTPServer`` answers from several threads, so each
+    query batch runs under one lock.  The recommender is built from
+    ``roots`` on ``device`` unless one is passed.  ``poll=True`` serves a
+    single request then returns; ``on_ready(srv)`` fires once the socket
+    is bound (``port=0`` picks a free port, ``srv.server_port``)."""
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from repro_torch.launch.recommend import Query, Recommender
+    from repro_torch.obs import metrics as obs_metrics
+
+    rec = recommender or Recommender.build(list(roots), device=device)
+    lock = threading.Lock()
+    t_started = time.time()
+    reg = obs_metrics.global_registry()
+    m_requests = {p: reg.counter("serve_requests_total",
+                                 labels={"route": p})
+                  for p in ("/healthz", "/metrics", "/recommend", "other")}
+    m_bad = reg.counter("serve_bad_requests_total")
+    m_exact = reg.counter("serve_answers_total",
+                          labels={"source": "archive"})
+    m_surrogate = reg.counter("serve_answers_total",
+                              labels={"source": "surrogate"})
+    m_dispatch = reg.counter("serve_fused_dispatches_total")
+    m_latency = reg.histogram("serve_request_seconds")
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet: stderr stays for errors
+            pass
+
+        def _reply(self, code: int, payload: dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _reply_text(self, code: int, text: str) -> None:
+            body = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _count(self) -> None:
+            m_requests.get(self.path, m_requests["other"]).inc()
+
+        def do_GET(self):
+            t0 = time.time()
+            self._count()
+            try:
+                if self.path == "/healthz":
+                    self._reply(200, {
+                        "status": "ok",
+                        "uptime_s": round(time.time() - t_started, 3),
+                        "cells": len(rec.index.cells),
+                        "candidates": len(rec.index.candidates),
+                        "dispatches": rec.n_dispatches,
+                        "index": {
+                            "seq_len": rec.index.seq_len,
+                            "batch": rec.index.batch,
+                            "answered_exact": rec.n_exact,
+                            "answered_surrogate": rec.n_surrogate,
+                        },
+                    })
+                elif self.path == "/metrics":
+                    self._reply_text(
+                        200, obs_metrics.render_prometheus(reg.snapshot()))
+                else:
+                    self._reply(404, {"error": f"no route {self.path}"})
+            finally:
+                m_latency.observe(time.time() - t0)
+
+        def do_POST(self):
+            t0 = time.time()
+            self._count()
+            try:
+                if self.path != "/recommend":
+                    self._reply(404, {"error": f"no route {self.path}"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    if not isinstance(req, dict):
+                        raise ValueError(
+                            "request body must be a JSON object, got "
+                            f"{type(req).__name__}")
+                    qd = req.get("queries", [])
+                    if not isinstance(qd, list):
+                        raise ValueError(
+                            "'queries' must be a list of objects, got "
+                            f"{type(qd).__name__}")
+                    queries = []
+                    for i, d in enumerate(qd):
+                        if not isinstance(d, dict):
+                            raise ValueError(
+                                f"queries[{i}] must be a JSON object, "
+                                f"got {type(d).__name__}")
+                        queries.append(Query.from_dict(d))
+                    if not queries:
+                        raise ValueError("request carries no queries")
+                    with lock:
+                        before = rec.n_dispatches
+                        answers = rec.recommend_batch(queries)
+                        used = rec.n_dispatches - before
+                    n_ex = sum(1 for a in answers if a.source == "archive")
+                    m_exact.inc(n_ex)
+                    m_surrogate.inc(len(answers) - n_ex)
+                    m_dispatch.inc(used)
+                    self._reply(200, {
+                        "answers": [a.to_dict() for a in answers],
+                        "dispatches": used,
+                    })
+                except (ValueError, TypeError, KeyError) as e:
+                    # malformed input is the client's 400 (a JSON decode
+                    # error is a ValueError), with a payload that says what
+                    # was wrong
+                    m_bad.inc()
+                    self._reply(400, {"error": {
+                        "type": type(e).__name__, "message": str(e)}})
+            finally:
+                m_latency.observe(time.time() - t0)
+
+    srv = ThreadingHTTPServer((host, port), Handler)
+    print(f"[serve] recommendation server on http://{host}:{srv.server_port}"
+          f" ({len(rec.index.cells)} cells, "
+          f"{len(rec.index.candidates)} candidates)", flush=True)
+    if on_ready is not None:
+        on_ready(srv)
+    try:
+        if poll:
+            srv.handle_request()
+        else:
+            srv.serve_forever()
+    finally:
+        srv.server_close()
+    return srv
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--recommend", action="append", default=[],
+                    metavar="ROOT",
+                    help="campaign run dir; start the recommendation "
+                         "server instead of the decode loop (repeatable)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8177)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
+    if a.recommend:
+        from repro_torch.launch.recommend import Recommender
+        try:
+            rec = Recommender.build(a.recommend, device=a.device)
+        except (OSError, ValueError) as e:
+            ap.error(f"--recommend: {e}")
+        recommend_server(a.recommend, host=a.host, port=a.port,
+                         recommender=rec)
+        return
+    if not a.arch:
+        ap.error("--arch is required (or pass --recommend ROOT)")
     serve(a.arch, reduced=a.reduced, batch=a.batch, prompt_len=a.prompt_len,
           gen_tokens=a.gen, device=a.device)
 

@@ -8,17 +8,24 @@ reward) runs through ``kernels.policy_mlp`` (the ``fused_mlp`` CUDA kernel
 on the card); training keeps autograd over the plain ops
 (:func:`predict_plain`).  :func:`screen_batch` scores K candidate actions
 per env through ``kernels.screen_score`` and picks the surrogate-best
-where a cell's gate is open.  The serving-side
-``fit_index_surrogate`` / ``score_query_batch`` are not ported yet.
+where a cell's gate is open.
+
+The serving side (the archive index of ``launch.recommend`` and the cost
+model of ``models.cost_model``): :func:`fit_index_surrogate` fits a
+serving-sized net (``SERVE_HIDDEN``, 82 -> 32 -> 16 -> 3) to an index's
+(context, log1p PPA) pairs, its calibration through ``fused_mlp``; and
+:func:`score_query_batch` scores every index candidate for a batch of
+queries in one call of plain products.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core.networks import gelu
 from repro_torch.kernels import policy_mlp, screen_score
 from repro_torch.optim.adam import tree_leaves, tree_map
@@ -173,6 +180,111 @@ def calib_errors(params: Dict, x: torch.Tensor,
     error over the 3 log1p targets."""
     return torch.mean((predict(params, x) - targets_from_metrics(metrics))
                       ** 2, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Pareto-as-a-service: the index surrogate and fused query-batch scoring
+# ---------------------------------------------------------------------------
+
+SERVE_HIDDEN = (32, 16)  # serving-sized net: the index surrogate
+# interpolates dozens-to-hundreds of archive points, and at query time its
+# layer-2 product runs Q x C times inside score_query_batch
+
+
+def fit_index_surrogate(x: np.ndarray, y_log: np.ndarray, *,
+                        steps: int = 400, seed: int = 0,
+                        minibatch: int = 4096,
+                        hidden: Tuple[int, int] = SERVE_HIDDEN,
+                        device="cuda", params: Optional[Dict] = None
+                        ) -> Surrogate:
+    """Fit a fresh surrogate to an archive index's (context, PPA) pairs on
+    ``device``.
+
+    ``x``: (N, in_dim) serving contexts (log1p workload features || node
+    constants || design vector); ``y_log``: (N, 3) log1p-space (power,
+    perf, area).  ``steps`` Adam steps of :func:`train_step`; datasets
+    larger than ``minibatch`` are subsampled per step from the reference's
+    seeded numpy stream, so two fits of the same index on one device are
+    bitwise equal.  ``params`` replaces the seeded init (the reference
+    starts from a ``jax.random`` one, which tests inject here).
+    ``resid_var`` is the calibration over the full dataset."""
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y_log, np.float32)
+    if x.ndim != 2 or y.shape != (x.shape[0], N_TARGETS):
+        raise ValueError(f"fit_index_surrogate: bad shapes {x.shape} / "
+                         f"{y.shape}")
+    dev = device_mod.resolve(device)
+    if params is None:
+        sur = Surrogate.create(x.shape[1], seed=seed, device=dev,
+                               hidden=hidden)
+    else:
+        # each leaf a float32 tensor of its own on the device
+        p = tree_map(lambda t: (t if isinstance(t, torch.Tensor)
+                                else torch.from_numpy(np.array(t, np.float32))
+                                ).to(dev, torch.float32).clone(), params)
+        sur = Surrogate(params=p, opt_state=init_opt(p))
+    rng = np.random.default_rng(seed)
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    for _ in range(steps):
+        if x.shape[0] > minibatch:
+            pick = rng.integers(0, x.shape[0], size=minibatch)
+            xb = torch.as_tensor(x[pick], device=dev)
+            yb = torch.as_tensor(y[pick], device=dev)
+        else:
+            xb, yb = xd, yd
+        sur.params, sur.opt_state, _ = train_step(
+            sur.params, sur.opt_state, xb, yb)
+        sur.n_updates += 1
+    sur.resid_var = float(torch.mean(_calib_errors_log(sur.params, xd, yd)))
+    return sur
+
+
+@torch.no_grad()
+def _calib_errors_log(params: Dict, x: torch.Tensor,
+                      y_log: torch.Tensor) -> torch.Tensor:
+    """:func:`calib_errors` for targets already in log1p space (the index
+    and transfer datasets), through :func:`predict`."""
+    return torch.mean((predict(params, x) - y_log) ** 2, dim=-1)
+
+
+@torch.no_grad()
+def score_query_batch(params: Dict, q: torch.Tensor, cand: torch.Tensor,
+                      weights: torch.Tensor, power_budget: torch.Tensor,
+                      min_perf: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score every index candidate for every query in one call.
+
+    q: (Q, F) per-query context (log1p workload features || node consts);
+    cand: (C, D) log1p candidate design vectors; weights: (Q, 3) normalized
+    (w_perf, w_power, w_area); power_budget: (Q,) mW cap (inf = none);
+    min_perf: (Q,) GOPS floor (0 = none).
+
+    Layer 1 is split along the input, ``gelu(q @ W1[:F] + cand @ W1[F:] +
+    b1)``, as the reference groups its sums (the (Q, C, F + D) concat is
+    never built).  Predictions are clamped at 0 (targets are log1p of
+    non-negative values); the score is ``screen_batch``'s scalarized log1p
+    proxy (lower = better); candidates whose predicted power or perf
+    violate the query's budget are masked to +inf, falling back to the
+    unmasked argmin when the budget excludes every candidate.  Returns
+    (best_idx (Q,), pred (Q, 3) linear-space (power, perf, area) of the
+    winner, within_budget (Q,))."""
+    w1, b1 = params["l1"]["w"], params["l1"]["b"]
+    f = q.shape[-1]
+    h = gelu((q @ w1[:f])[:, None, :] + (cand @ w1[f:])[None, :, :] + b1)
+    h = gelu(h @ params["l2"]["w"] + params["l2"]["b"])
+    pred = h @ params["head"]["w"] + params["head"]["b"]       # (Q, C, 3)
+    pred = torch.clamp_min(pred, 0.0)
+    score = (weights[:, None, 1] * pred[..., 0]
+             + weights[:, None, 2] * pred[..., 2]
+             - weights[:, None, 0] * pred[..., 1])
+    ok = ((torch.expm1(pred[..., 0]) <= power_budget[:, None])
+          & (torch.expm1(pred[..., 1]) >= min_perf[:, None]))
+    within = ok.any(dim=1)
+    masked = torch.where(ok, score, torch.full_like(score, float("inf")))
+    idx = torch.where(within, torch.argmin(masked, dim=1),
+                      torch.argmin(score, dim=1))
+    sel = torch.take_along_dim(pred, idx[:, None, None], dim=1)[:, 0]
+    return idx, torch.expm1(sel), within
 
 
 @dataclasses.dataclass

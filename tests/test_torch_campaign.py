@@ -93,7 +93,8 @@ def test_grid_expansion_and_packing_match_the_reference():
     (dict(modes=["turbo"]), "unknown modes"),
     (dict(lanes=64, max_envs=8), "max_envs"),
     (dict(screen_k=0), "screen_k"),
-    (dict(transfer_from=["/x"]), "transfer_from: cross-campaign"),
+    (dict(priorities={"k": "high"}),
+     "priorities must map batch keys to numbers"),
     (dict(devices=0), "devices must be >= 1"),
     (dict(hosts=[" "]), "hosts must be a non-empty list"),
 ])
@@ -314,7 +315,7 @@ def test_cli_resumes_a_zoo_workload_run_dir(tmp_path, capsys):
 @pytest.mark.parametrize("flags,needle", [
     (["--workers", "0"], "--workers must be >= 1"),
     (["--hosts", "a,b"], "pass --workers"),
-    (["--transfer-from", "/x"], "--transfer-from: not ported"),
+    (["--transfer-from", "/x", "--resume"], "keeps the warm-start donors"),
     (["--mesh", "x"], "--mesh must be 'auto'"),
     (["--devices", "2", "--resume"], "keeps the mesh"),
     (["--phase", "prefill"], "sweep these as 'phases'"),

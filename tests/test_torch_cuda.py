@@ -7,8 +7,10 @@ bit-for-bit, a scenario campaign (SLO selection) and the scalar act path
 against the same on the CPU, and the LM kernels (``flash_attention``,
 ``ssm_scan``, the windowed Mixtral shape among them) and reduced LM
 generation on the card against the same on the CPU, ``devices=1``
-bitwise ``devices=None``, and a W=2 fleet of two processes on the card
-fingerprinting as the W=1 campaign.
+bitwise ``devices=None``, a W=2 fleet of two processes on the card
+fingerprinting as the W=1 campaign, ``fused_mlp`` at the index
+surrogate's serving widths and the recommender on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -448,6 +450,76 @@ def test_fused_mlp_kernel_matches_plain(dev, b, d_out, dtype, rtol, atol):
                                atol=atol)
     with torch.no_grad():
         assert torch.equal(got, policy_mlp.fused_mlp(x, *ws))
+
+
+# the index surrogate's serving widths, 82 -> 32 -> 16 -> 3 (SERVE_HIDDEN):
+# a tile's 4 column warps share 4, 2 and 1 n-tiles of 8 columns
+@pytest.mark.parametrize("b", [1, 17, 22, 448, 4225])
+def test_fused_mlp_kernel_at_the_serving_widths(dev, b):
+    g = _gen(dev, b)
+    ws = [torch.randn(s, generator=g, device=dev) * 0.3
+          for s in ((82, 32), (32,), (32, 16), (16,), (16, 3), (3,))]
+    x = torch.randn((b, 82), generator=g, device=dev)
+    before = policy_mlp.launches
+    with torch.no_grad():
+        got = policy_mlp.fused_mlp(x, *ws)
+        torch.cuda.synchronize()
+        want = policy_mlp.fused_mlp_plain(x, *ws)
+    assert policy_mlp.launches == before + 1
+    assert got.shape == (b, 3)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    with torch.no_grad():
+        assert torch.equal(got, policy_mlp.fused_mlp(x, *ws))
+
+
+def _query_score(q, ans):
+    """The scalarized log1p score ``score_query_batch`` ranks an answer
+    by (lower = better)."""
+    w_perf, w_power, w_area = np.asarray(q.weights) / sum(q.weights)
+    p, f, a = np.log1p([ans.power_mw, ans.perf_gops, ans.area_mm2])
+    return w_power * p + w_area * a - w_perf * f
+
+
+def test_recommender_on_card_matches_cpu(dev, tmp_path):
+    """A campaign's archive index served on the card: the index fit
+    launches ``fused_mlp``; exact answers equal the CPU recommender's
+    bitwise; surrogate answers, the CPU recommender given the card's
+    fitted parameters, pick the same design with predictions within rtol
+    1e-4, or (a near-tie) designs whose scores are within 1e-4; one
+    dispatch for the batch, none for an all-exact one."""
+    from repro_torch.launch.recommend import Query, Recommender
+    spec = CampaignSpec(name="cardrec", workloads=["smolvlm"],
+                        nodes=[3, 28], modes=["high_perf"], episodes=640,
+                        lanes=64, max_envs=128, checkpoint_every=0)
+    store = run_campaign(str(tmp_path / "camp"), spec,
+                         progress=lambda m: None)
+    before = policy_mlp.launches
+    card = Recommender.build([store.root], fit_steps=100, device="cuda")
+    assert policy_mlp.launches > before
+    params = {k: {kk: v.cpu() for kk, v in d.items()}
+              for k, d in card.surrogate.params.items()}
+    cpu = Recommender.build([store.root], fit_steps=0, params=params,
+                            device="cpu")
+    exact = [Query(arch="smolvlm", node_nm=n) for n in (3, 28)]
+    queries = exact + [Query(arch=a, node_nm=n, mode=m)
+                       for a in ("smolvlm", "llama3.1-8b")
+                       for n in (5, 7, 10) for m in ("high_perf",
+                                                      "low_power")]
+    got, want = card.recommend_batch(queries), cpu.recommend_batch(queries)
+    assert card.n_dispatches == cpu.n_dispatches == 1
+    for q, g, w in zip(queries, got, want):
+        assert g.source == w.source and g.cell_id == w.cell_id
+        if g.source == "archive":
+            assert np.array_equal(g.cfg, w.cfg)
+            assert g.to_dict() == w.to_dict()
+        elif np.array_equal(g.cfg, w.cfg):
+            np.testing.assert_allclose(
+                [g.power_mw, g.perf_gops, g.area_mm2],
+                [w.power_mw, w.perf_gops, w.area_mm2], rtol=1e-4)
+        else:
+            assert abs(_query_score(q, g) - _query_score(q, w)) <= 1e-4
+    card.recommend_batch(exact)
+    assert card.n_dispatches == 1
 
 
 def test_new_wrappers_check_their_inputs(dev):

@@ -213,6 +213,33 @@ def test_fleet_w2_matches_w1_bitwise(w1_w2):
     assert "| worker |" in md and "worker-1" in md
 
 
+def test_fleet_warm_start_w2_matches_w1_bitwise(tmp_path, w1_w2):
+    """A warm-started (``--transfer-from``) fleet fingerprints as the W=1
+    warm run: the parent records the donors before the workers spawn,
+    every worker mirrors the top-level transfer record verbatim, and the
+    priority deal changes only where batches run.  The donor is the W=1
+    campaign of ``w1_w2`` (a port run directory)."""
+    from repro_torch.campaign import transfer as transfer_mod
+    donor = w1_w2[1]
+    tspec = transfer_mod.with_transfer(smoke_spec("weq"), [donor.root],
+                                       device="cpu")
+    assert tspec.priorities is not None
+    ref = run_campaign(str(tmp_path / "w1"), tspec, **CPU)
+    store = fleet_mod.run_fleet(str(tmp_path / "w2"), tspec, workers=2,
+                                **CPU)
+    assert store.all_done()
+    assert fingerprint(store) == fingerprint(ref)
+    top = store.manifest["transfer"]
+    assert top["donors"] and top == ref.manifest["transfer"]
+    assert all(d["weights"] for d in top["donors"].values())
+    mirrored = 0
+    for wr in glob.glob(os.path.join(store.root, "worker-*")):
+        if os.path.isfile(os.path.join(wr, "manifest.json")):
+            assert CampaignStore.open(wr).manifest["transfer"] == top
+            mirrored += 1
+    assert mirrored == 2
+
+
 def test_workers_trace_log_and_publish_launch_counts(w1_w2):
     """Each worker traces and logs into its own directory, and its final
     (done) lease carries its metrics, the kernels' launch counts among

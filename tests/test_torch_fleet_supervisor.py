@@ -449,8 +449,8 @@ def test_dse_cli_rejects_bad_fleet_flags(capsys):
     # negative/zero --workers stays a clean one-liner, not a traceback
     assert "--workers must be >= 1" in \
         err_of(["--campaign", GRID, "--workers", "-2"])
-    # cross-campaign transfer stays refused
-    assert "--transfer-from: not ported" in \
+    # a transfer donor root needs a campaign manifest
+    assert "--transfer-from: no campaign manifest under /x" in \
         err_of(base + ["--transfer-from", "/x"])
 
 

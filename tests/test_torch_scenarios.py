@@ -34,7 +34,7 @@ import repro_torch.campaign.runner as runner_mod
 import repro_torch.core.search as search_mod
 from repro_torch.campaign import CampaignSpec, CampaignStore, plan, run_campaign
 from repro_torch.campaign.planner import scenario_suffix
-from repro_torch.campaign.report import split_cell_id, split_scenario
+from repro_torch.launch.recommend import split_cell_id, split_scenario
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.reward import (DEFAULT_SLOS, resolve_slo,
                                      slo_objective, ttft_ms)
@@ -363,6 +363,35 @@ def test_scenario_campaign_kill_resume_is_bitwise(moe_scenario_run,
         fa, fb = (s.load_archive(cid).frontier() for s in (full, store))
         for k in fa:
             np.testing.assert_array_equal(np.sort(fa[k]), np.sort(fb[k]))
+
+
+def test_scenario_recommend_exact_with_ttft_cap(moe_scenario_run):
+    """Scenario queries answered from the suffixed cells: a prefill query
+    under a loose TTFT cap is the prefill cell's archive pick (bitwise the
+    reference recommender's on the same run directory), an impossible cap
+    falls through to the surrogate."""
+    from repro.launch.recommend import Query as RefQuery
+    from repro.launch.recommend import Recommender as RefRecommender
+    from repro_torch.launch.recommend import Query, Recommender
+    store = moe_scenario_run
+    rec = Recommender.build([store.root], fit_steps=10,
+                              device="cpu")
+    a_dec = rec.recommend(Query(node_nm=7, arch="mixtral-8x7b"))
+    a_pre = rec.recommend(Query(node_nm=7, arch="mixtral-8x7b",
+                                phase="prefill", max_ttft_ms=1e9))
+    assert a_dec.source == "archive"
+    assert a_dec.cell_id == "mixtral-8x7b__7nm__high_perf"
+    assert a_pre.source == "archive"
+    assert a_pre.cell_id == "mixtral-8x7b__7nm__high_perf__native-prefill"
+    a_miss = rec.recommend(Query(node_nm=7, arch="mixtral-8x7b",
+                                 phase="prefill", max_ttft_ms=1e-6))
+    assert a_miss.source == "surrogate"
+    ref = RefRecommender.build([store.root], fit_steps=10).recommend(
+        RefQuery(node_nm=7, arch="mixtral-8x7b", phase="prefill",
+                 max_ttft_ms=1e9))
+    assert np.array_equal(a_pre.cfg, ref.cfg)
+    assert (a_pre.power_mw, a_pre.tok_s, a_pre.ppa_score) == (
+        ref.power_mw, ref.tok_s, ref.ppa_score)
 
 
 # --------------------------------------------------------------- DSE CLI

@@ -1,6 +1,6 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``: it runs
-on the CPU when asked, raises for a card that is not there, and refuses
-what is not ported (``--recommend``)."""
+on the CPU when asked, raises for a card that is not there, and refuses a
+``--recommend`` root that holds no campaign with a one-line error."""
 import os
 import subprocess
 import sys
@@ -62,10 +62,16 @@ def test_serve_on_cuda_without_a_card_raises():
                     "cuda"])
 
 
-def test_serve_cli_refuses_recommend(capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "smolvlm", "--recommend", "some/run"])
-    assert "unrecognized arguments: --recommend" in capsys.readouterr().err
+def test_serve_cli_refuses_recommend(tmp_path, capsys):
+    """``--recommend`` on a root with no campaign is a one-line error."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--recommend", str(tmp_path / "nope"), "--device",
+                    "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err.strip().splitlines()
+    assert err[-1].endswith(f"--recommend: no campaign manifest at "
+                            f"{tmp_path / 'nope' / 'manifest.json'}")
+    assert "Traceback" not in "\n".join(err)
 
 
 @pytest.mark.parametrize("arch,name", [
