@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the design-space search, campaigns, scenario
 grids with SLO selection, the scalar engine and its baselines, LM serving,
-fleets, design recommendation and cross-campaign transfer) on one NVIDIA
-GPU.
+fleets, design recommendation and cross-campaign transfer, LM training and
+the whole LM zoo) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -149,7 +149,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and cold printed; the warm grid as a W = 2 fleet, fingerprinting as
      the W = 1 warm run, each worker's manifest carrying the transfer
      record;
- 13. one JSON line per kernel (``fused_mlp``'s with its serving shape
+ 13. LM training and the rest of the zoo (:func:`lm_training_zoo`): (a)
+     ``flash_attention_backward`` against autograd over the plain version
+     at SmolLM-135M's training shape (q [8,9,1,024,64], k/v 3 heads),
+     Jamba's attention layer, the Whisper encoder (non-causal, 1,500),
+     MiniCPM3's MLA width (hd 96), a ragged GQA case (Sq 77, Sk 131) and a
+     window, each in fp32 (rtol 1e-4, atol 1e-5) and bf16 (2e-2 of the
+     largest gradient), two calls bitwise equal; ``ssm_scan_backward`` at
+     Jamba's [2,512,8192] x 16 and a ragged shape, with and without the
+     final state's gradient (rtol 1e-4, atol 1e-5 of the largest gradient,
+     and within 1e-5 of it from a float64 plain run, beside which the
+     float32 plain run's own gap is printed), bitwise repeatable; both timed beside their bounds, the plain
+     versions' autograd and (attention) SDPA's backward; (b) SmolLM-135M
+     at full width through ``repro_torch.launch.train`` (bf16, B = 8, S =
+     1,024, ``TRAIN_STEPS`` steps): the loss falls, steps/s, tokens/s and
+     the attention launches; kill/resume over 6 steps (3, a stop, 3
+     resumed) within rtol 1e-6 of a straight run, bitwise or not printed;
+     (c) Jamba at full width with 2 layers (attention + dense FFN, Mamba +
+     16-expert MoE; 3.7 B parameters), 5 steps of 2 x 512, both scan
+     kernels once a step; (d) one step of every reduced config in float32
+     on the card against the same step on the CPU (loss within 1e-4); (e)
+     ``ZOO_RUNS`` through ``serve.inputs`` + ``generate``: MiniCPM3-4B and
+     Whisper medium and xLSTM 1.3B whole, Llama 3.2 Vision at full width
+     with one period (5 layers, 4,096 context tokens), prefill ms, decode
+     tok/s, attention launches; each again as a float32 copy of one period
+     through the kernels and through the plain versions (prefill logits
+     within 1e-4 of max |logit|, identical greedy tokens);
+ 14. one JSON line per kernel (``fused_mlp``'s with its serving shape
      under ``serve``), then the result line.
 """
 from __future__ import annotations
@@ -1173,6 +1199,423 @@ def recommend_transfer(device, index_root, root, timed=None,
         "(the index build and the warm run's cost-model fits)")
     return paths, dict(rows=n_rows, max_abs_err=serve_err,
                        launches=serve_launches[0])
+
+
+# phase 13: the backward kernels' parity cases (B, H, Hk, Sq, Sk, hd,
+# causal, window): SmolLM-135M's training shape, Jamba's attention layer,
+# the Whisper encoder (non-causal), MiniCPM3's MLA width (96), a ragged
+# GQA one with Sq != Sk and a window
+BWD_ATTN_CASES = [(8, 9, 3, 1024, 1024, 64, True, 0),
+                  (2, 32, 8, 512, 512, 128, True, 0),
+                  (2, 16, 16, 1500, 1500, 64, False, 0),
+                  (2, 40, 40, 512, 512, 96, True, 0),
+                  (1, 4, 2, 77, 131, 64, True, 0),
+                  (1, 4, 2, 300, 300, 64, True, 128)]
+BWD_SSM_CASES = [(2, 512, 8192, 16), (2, 300, 200, 13)]
+# (b) SmolLM-135M at full width: 100 steps of B = 8 x S = 1,024 (the loss
+# runs in 2 chunks of 512), then kill/resume over 6 steps; (c) Jamba at
+# full width with 2 layers, 5 steps of 2 x 512; (e) serving the four
+# architectures the earlier slices lacked: (label, arch, config changes,
+# batch, prompt, generated tokens)
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 100, 8, 1024
+JAMBA_STEPS = 5
+ZOO_RUNS = (("minicpm3", "minicpm3-4b", {}, 4, 512, 32),
+            ("whisper", "whisper-medium", {}, 4, 448, 32),
+            ("xlstm", "xlstm-1.3b", {}, 4, 512, 32),
+            ("vision", "llama-3.2-vision-90b", dict(n_layers=5), 2, 512, 32))
+
+
+def attention_bwd_work(B, H, Hk, Sq, Sk, hd, causal, window, elt) -> tuple:
+    """FLOPs and bytes of one ``flash_attention_backward`` call: per
+    visible pair the recomputed q.k and the products for dV, dP, dQ and dK
+    (5 x 2 x hd); q, k, v, o, dO and lse read once, dq, dk, dv written
+    once."""
+    flops, _ = attention_work(B, H, Hk, Sq, Sk, hd, causal, window, elt)
+    return (2.5 * flops, elt * hd * (4 * B * H * Sq + 4 * B * Hk * Sk)
+            + 4 * B * H * Sq)
+
+
+def ssm_bwd_work(B, S, D, N) -> tuple:
+    """The same for one ``ssm_scan_backward`` call: the forward's states
+    recomputed (6 operations a state a step) and about 14 more for g, the
+    five gradients' terms; one exponential a state a step (the least: the
+    forward's, reused); dt, x, dy, B, C, A and the saved states read once,
+    d(dt), dx, dB, dC, dA written once."""
+    n_chunks = -(-S // 128)
+    return (20.0 * B * S * D * N,
+            4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
+                 + n_chunks * B * D * N),
+            float(B * S * D * N))
+
+
+def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
+                    zoo_runs=ZOO_RUNS) -> tuple:
+    """Phase 13 (see the module docstring) on the card.  Returns the
+    launch counts of the training path and of the zoo's serving runs."""
+    import dataclasses as dc_
+    from unittest import mock as mock_
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.kernels import flash_attention as fa, ops, ssm_scan as ss
+    from repro_torch.launch import serve, train as train_mod
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import trainer
+    from repro_torch.optim.adam import tree_leaves, tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    errs.setdefault("flash_attention_backward", 0.0)
+    errs.setdefault("ssm_scan_backward", 0.0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    # (a) the backward kernels against their plain versions' autograd
+    for case in BWD_ATTN_CASES:
+        B, H, Hk, Sq, Sk, hd, causal, window = case
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(shape, generator=gen,
+                                       device=dev).to(dt)
+                           for shape in ((B, H, Sq, hd), (B, Hk, Sk, hd),
+                                         (B, Hk, Sk, hd), (B, H, Sq, hd)))
+            with torch.no_grad():
+                o, lse = fa._forward_cuda(q, k, v, causal, window, True)
+                got = fa.flash_attention_backward_cuda(
+                    q, k, v, o, lse, do, causal=causal, window=window)
+                again = fa.flash_attention_backward_cuda(
+                    q, k, v, o, lse, do, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_backward_plain(
+                q, k, v, do, causal=causal, window=window)
+            worst = 0.0
+            for name, g_, a_, w_ in zip("qkv", got, again, want):
+                if not torch.equal(g_, a_):
+                    fail(f"flash_attention_backward {case} {dt}: d{name} "
+                         "differs between two identical calls")
+                err = float((g_.float() - w_.float()).abs().max())
+                scale = float(w_.float().abs().max())
+                ok = (torch.allclose(g_, w_, rtol=1e-4, atol=1e-5)
+                      if dt == torch.float32 else err <= 2e-2 * scale)
+                worst = max(worst, err if dt == torch.float32
+                            else err / scale)
+                if dt == torch.float32:
+                    errs["flash_attention_backward"] = max(
+                        errs["flash_attention_backward"], err)
+                if not ok:
+                    fail(f"flash_attention_backward {case} {dt}: d{name} "
+                         f"disagrees with the plain version (max abs err "
+                         f"{err:.3e}, max |grad| {scale:.3e})")
+            log(f"parity flash_attention_backward B={B} H={H} Hk={Hk} "
+                f"Sq={Sq} Sk={Sk} hd={hd} causal={causal} window={window} "
+                f"{str(dt)[6:]}: max {'abs' if dt == torch.float32 else 'rel'}"
+                f" err {worst:.3e}, two calls bitwise equal")
+            del q, k, v, do, o, lse, got, again, want
+    for B, S, D, N in BWD_SSM_CASES:
+        ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
+               torch.randn((B, S, N), generator=gen, device=dev),
+               torch.randn((B, S, N), generator=gen, device=dev),
+               torch.randn((B, S, D), generator=gen, device=dev),
+               -torch.exp(0.5 * torch.randn((D, N), generator=gen,
+                                            device=dev)))
+        dy = torch.randn((B, S, D), generator=gen, device=dev)
+        for dh in (None, torch.randn((B, D, N), generator=gen, device=dev)):
+            with torch.no_grad():
+                _, _, h_chunks = ss._forward_cuda(*ins, None, True)
+                got = ss.ssm_scan_backward_cuda(*ins, h_chunks, dy, dh)
+                again = ss.ssm_scan_backward_cuda(*ins, h_chunks, dy, dh)
+            torch.cuda.synchronize()
+            want = ss.ssm_scan_backward_plain(*ins, None, dy, dh)
+            exact = ss.ssm_scan_backward_plain(
+                *(t.double() for t in ins), None, dy.double(),
+                None if dh is None else dh.double())
+            for name, g_, a_, w_, x_ in zip(("dt", "B", "C", "x", "A"), got,
+                                            again, want, exact):
+                if not torch.equal(g_, a_):
+                    fail(f"ssm_scan_backward {(B, S, D, N)}: d{name} "
+                         "differs between two identical calls")
+                err = float((g_ - w_).abs().max())
+                scale = float(w_.abs().max())
+                err_k = float((g_.double() - x_).abs().max())
+                err_p = float((w_.double() - x_).abs().max())
+                errs["ssm_scan_backward"] = max(errs["ssm_scan_backward"],
+                                                err)
+                log(f"parity ssm_scan_backward B={B} S={S} D={D} N={N} dh="
+                    f"{dh is not None} d{name}: max abs err {err:.3e} of max"
+                    f" |grad| {scale:.3e}; against float64 kernel "
+                    f"{err_k:.3e}, plain float32 {err_p:.3e}")
+                if not (torch.allclose(g_, w_, rtol=1e-4, atol=1e-5 * scale)
+                        and err_k <= 1e-5 * scale):
+                    fail(f"ssm_scan_backward {(B, S, D, N)}: d{name} "
+                         "disagrees with the plain version")
+    # timing at the training shapes: the kernel (CUDA graph), the plain
+    # version's autograd and SDPA's backward (eager, CUDA events)
+    for label, case, dt in (("smollm", BWD_ATTN_CASES[0], torch.bfloat16),
+                            ("jamba", BWD_ATTN_CASES[1], torch.bfloat16),
+                            ("smollm_fp32", BWD_ATTN_CASES[0],
+                             torch.float32)):
+        B, H, Hk, Sq, Sk, hd, causal, window = case
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((B, H, Sq, hd), (B, Hk, Sk, hd),
+                                     (B, Hk, Sk, hd), (B, H, Sq, hd)))
+        with torch.no_grad():
+            o, lse = fa._forward_cuda(q, k, v, causal, window, True)
+        kern = lambda: fa.flash_attention_backward_cuda(
+            q, k, v, o, lse, do, causal=causal, window=window)
+        plain = lambda: fa.flash_attention_backward_plain(
+            q, k, v, do, causal=causal, window=window)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+        ms = device_ms(kern)
+        call = call_ms(kern, n=20, warm=3)
+        plain_ms = call_ms(plain, n=5, warm=1)
+        library_ms = call_ms(lib, n=20, warm=3)
+        bnd, by, term = bound_ms(*attention_bwd_work(*case, q.element_size()),
+                                 unit="fp32" if dt == torch.float32
+                                 else "half")
+        timings[("flash_attention_backward", label)] = (
+            ms, plain_ms, bnd, by, term, call, library_ms)
+        log(f"time flash_attention_backward {label} q [{B},{H},{Sq},{hd}] "
+            f"k/v [{B},{Hk},{Sk},{hd}] {str(dt)[6:]} causal: ms {ms:.5f} "
+            f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f} bound_by {by}"
+            f" ({term}) library_ms (SDPA backward) {library_ms:.5f} | eager "
+            f"call_ms {call:.5f}")
+        del q, k, v, do, o, lse, leaves, out
+    B, S, D, N = BWD_SSM_CASES[0]
+    ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
+           torch.randn((B, S, N), generator=gen, device=dev),
+           torch.randn((B, S, N), generator=gen, device=dev),
+           torch.randn((B, S, D), generator=gen, device=dev),
+           -torch.exp(0.5 * torch.randn((D, N), generator=gen, device=dev)))
+    dy = torch.randn((B, S, D), generator=gen, device=dev)
+    with torch.no_grad():
+        _, _, h_chunks = ss._forward_cuda(*ins, None, True)
+    kern = lambda: ss.ssm_scan_backward_cuda(*ins, h_chunks, dy)
+    ms, call = device_ms(kern), call_ms(kern, n=20, warm=3)
+    plain_ms = call_ms(lambda: ss.ssm_scan_backward_plain(*ins, None, dy),
+                       n=2, warm=1)
+    bnd, by, term = bound_ms(*ssm_bwd_work(B, S, D, N)[:2],
+                             sfu_ops=ssm_bwd_work(B, S, D, N)[2])
+    timings[("ssm_scan_backward", "c")] = (ms, plain_ms, bnd, by, term, call,
+                                           None)
+    log(f"time ssm_scan_backward [{B},{S},{D}] N={N} fp32: ms {ms:.5f} "
+        f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f} bound_by {by} "
+        f"({term}) library_ms None | eager call_ms {call:.5f}")
+    del ins, dy, h_chunks
+
+    # (b) SmolLM-135M at full width through repro_torch.launch.train
+    ckpt_root = os.path.join(OUT, "train")
+    subprocess.run(["rm", "-rf", ckpt_root], check=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    _, losses = train_mod.train("smollm-135m", reduced=False, steps=steps,
+                                global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                log_every=10, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    train_counts = dict(ops.launch_counts())
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    log(f"train smollm-135m: {steps} steps of {TRAIN_B} x {TRAIN_S} in "
+        f"{wall:.3f} s: {steps / wall:.4f} steps/s, "
+        f"{steps * TRAIN_B * TRAIN_S / wall:.1f} tokens/s; loss first 10 "
+        f"mean {first:.4f}, last 10 mean {last:.4f}; launches "
+        f"flash_attention {train_counts['flash_attention']} "
+        f"flash_attention_backward "
+        f"{train_counts['flash_attention_backward']}; peak_mem_gb "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if not (np.isfinite(losses).all() and first > last):
+        fail("train smollm-135m: the loss did not fall")
+    n_layers = get_config("smollm-135m").n_layers
+    for name in ("flash_attention", "flash_attention_backward"):
+        if train_counts[name] != steps * n_layers:
+            fail(f"train smollm-135m: {name} launched {train_counts[name]} "
+                 f"times, not {steps * n_layers}")
+    # kill/resume: 6 steps straight against 3, a stop, and 3 resumed
+    ops.reset_launch_counts()
+    kw = dict(reduced=False, steps=6, global_batch=TRAIN_B,
+              seq_len=TRAIN_S, ckpt_every=1000, log_every=1, device="cuda")
+    full, l_full = train_mod.train("smollm-135m",
+                                   ckpt_dir=os.path.join(ckpt_root, "a"),
+                                   **kw)
+    _, l_a = train_mod.train("smollm-135m", stop_after=3,
+                             ckpt_dir=os.path.join(ckpt_root, "b"), **kw)
+    resumed, l_b = train_mod.train("smollm-135m", resume="auto",
+                                   ckpt_dir=os.path.join(ckpt_root, "b"),
+                                   **kw)
+    pairs = list(zip(ckpt._leaves_with_names(resumed),
+                     ckpt._leaves_with_names(full)))
+    bitwise = l_a + l_b == l_full and all(torch.equal(a_, b_)
+                                          for (_, a_), (_, b_) in pairs)
+    close = np.allclose(l_a + l_b, l_full, rtol=1e-6) and all(
+        torch.allclose(a_.double(), b_.double(), rtol=1e-6, atol=0)
+        for (_, a_), (_, b_) in pairs)
+    log(f"train kill/resume smollm-135m: losses straight {l_full}, "
+        f"stopped {l_a} + resumed {l_b}; within rtol 1e-6 {close}; bitwise "
+        f"{bitwise}")
+    if not close:
+        fail("train kill/resume: the resumed run differs from the straight "
+             "one")
+    del full, resumed, pairs
+    subprocess.run(["rm", "-rf", ckpt_root], check=False)
+    train_counts = {k: train_counts[k] + v
+                    for k, v in ops.launch_counts().items()}
+
+    # (c) Jamba at full width with 2 layers (attention + dense FFN, Mamba +
+    # the 16-expert MoE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dc_.replace(get_config("jamba-v0.1-52b"), n_layers=2)
+    ops.reset_launch_counts()
+    t = time.time()
+    state, losses = train_mod.train("jamba-v0.1-52b", cfg=cfg, seed=SEED,
+                                    steps=JAMBA_STEPS, global_batch=2,
+                                    seq_len=512, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = ops.launch_counts()
+    n_params = sum(t_.numel() for t_ in tree_leaves(state.params))
+    # a slice of a matrix of each part against the same seed's initial
+    # weights (a norm's scale of 1 is bf16-rounding-stationary under steps
+    # of lr <= 1.5e-4)
+    samples = {"embed": lambda p: p["embed"]["w"][:64],
+               "attention wq": lambda p: p["blocks"]["p0"]["wq"]["w"]
+               [..., :64, :64],
+               "mamba in_proj": lambda p: p["blocks"]["p1"]["in_proj"]["w"]
+               [..., :64, :64],
+               "expert e_up": lambda p: p["blocks"]["p1"]["e_up"]
+               [..., 0, :64, :64]}
+    after = {k: f(state.params).clone() for k, f in samples.items()}
+    del state
+    init = lm.init_params(cfg, seed=SEED, device=dev)
+    moved = {k: float((after[k] - f(init)).abs().max().float())
+             for k, f in samples.items()}
+    del init
+    log(f"train jamba-v0.1-52b 2 layers ({n_params / 1e9:.3f} B parameters)"
+        f": {JAMBA_STEPS} steps of 2 x 512 in {wall:.3f} s, losses {losses}"
+        f"; launches ssm_scan {counts['ssm_scan']} ssm_scan_backward "
+        f"{counts['ssm_scan_backward']} flash_attention "
+        f"{counts['flash_attention']}; parameters moved {moved}; peak_mem_gb "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if not (np.isfinite(losses).all() and all(m > 0 for m in moved.values())):
+        fail("train jamba: a loss is not finite or the parameters stayed")
+    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
+                 "flash_attention_backward"):
+        if counts[name] != JAMBA_STEPS:
+            fail(f"train jamba: {name} launched {counts[name]} times, not "
+                 f"{JAMBA_STEPS}")
+    train_counts = {k: train_counts[k] + v for k, v in counts.items()}
+
+    # (d) one step on every reduced config (float32) on the card, and the
+    # same step on the CPU from the card's initial weights
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    tc = trainer.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in ARCH_IDS:
+        cfg = dc_.replace(get_reduced(arch), param_dtype="float32")
+        p_gpu = lm.init_params(cfg, seed=SEED, device=dev)
+        p_cpu = tree_map(lambda t_: t_.cpu(), p_gpu)
+        p_start = tree_map(lambda t_: t_.clone(), p_cpu)
+        rng = np.random.default_rng(SEED)
+        batch = dict(tokens=rng.integers(0, cfg.vocab, (2, 64)),
+                     labels=rng.integers(0, cfg.vocab, (2, 64)))
+        ctx = train_mod.context_at(cfg, SEED, 0, 2)
+        mets = {}
+        for where, p_ in (("cuda", p_gpu), ("cpu", p_cpu)):
+            b_ = {k: torch.as_tensor(v, device=where).long()
+                  for k, v in batch.items()}
+            if ctx is not None:
+                b_["ctx"] = torch.as_tensor(ctx, device=where)
+            st, met = trainer.make_train_step(cfg, tc)(
+                trainer.create_state(p_), b_)
+            mets[where] = {k: float(v) for k, v in met.items()}
+            if where == "cuda":
+                moved = max(float((a_.cpu() - b0).abs().max()) for a_, b0 in
+                            zip(tree_leaves(st.params),
+                                tree_leaves(p_start)))
+        gap = abs(mets["cuda"]["loss"] - mets["cpu"]["loss"]) \
+            / abs(mets["cpu"]["loss"])
+        gn = abs(mets["cuda"]["grad_norm"] - mets["cpu"]["grad_norm"]) \
+            / abs(mets["cpu"]["grad_norm"])
+        log(f"train step {arch} reduced float32: card loss "
+            f"{mets['cuda']['loss']:.6f} grad_norm "
+            f"{mets['cuda']['grad_norm']:.6f}, CPU loss "
+            f"{mets['cpu']['loss']:.6f} grad_norm "
+            f"{mets['cpu']['grad_norm']:.6f} (relative gaps {gap:.2e}, "
+            f"{gn:.2e}); parameters moved {moved:.3e}")
+        if not (np.isfinite(list(mets["cuda"].values())).all()
+                and gap <= 1e-4 and moved > 0):
+            fail(f"train step {arch}: the card's step disagrees with the "
+                 "CPU's, is not finite or moved nothing")
+    counts = ops.launch_counts()
+    train_counts = {k: train_counts[k] + v for k, v in counts.items()}
+    for name in ("flash_attention", "flash_attention_backward", "ssm_scan",
+                 "ssm_scan_backward"):
+        if train_counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the train path")
+
+    # (e) serving the four new architectures, then an fp32 copy of one
+    # period through the kernels and through the plain versions
+    zoo_counts = {k: 0 for k in ops.KERNELS}
+    for label, arch, changes, batch, prompt_len, gen_tokens in zoo_runs:
+        full = dc_.replace(get_config(arch), **changes)
+        period = lm.period_of(full)
+        for tag, cfg in (("whole", full), ("fp32", dc_.replace(
+                full, n_layers=period, param_dtype="float32",
+                **({"enc_layers": 1} if full.is_encdec else {})))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, prompts, ctx = serve.inputs(cfg, batch, prompt_len, SEED,
+                                                dev)
+            n_params = sum(t_.numel() for t_ in tree_leaves(params))
+            kinds = lm.decoder_kinds(cfg)
+            serve.generate(params, cfg, prompts, 2, ctx)          # warm-up
+            ops.reset_launch_counts()
+            g = serve.generate(params, cfg, prompts, gen_tokens, ctx)
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                zoo_counts[k] += v
+            want_fa = sum(1 + (k == "xattn") for k in kinds
+                          if k in ("attn", "xattn")) + cfg.enc_layers
+            log(f"zoo {label} {tag}: {arch} {json.dumps(changes)} "
+                f"{cfg.param_dtype} ({cfg.n_layers} layers"
+                f"{f' + {cfg.enc_layers} encoder' if cfg.is_encdec else ''},"
+                f" {n_params / 1e9:.3f} B parameters); batch {batch}, prompt "
+                f"{prompt_len}, {gen_tokens} tokens: prefill_ms "
+                f"{1e3 * g.t_prefill:.3f} decode_tok_s {g.tok_s:.3f}; "
+                f"launches flash_attention {counts['flash_attention']}; "
+                f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.3f}")
+            if not torch.isfinite(g.prefill_logits).all():
+                fail(f"zoo {label} {tag}: prefill logits are not finite")
+            if counts["flash_attention"] != want_fa:
+                fail(f"zoo {label} {tag}: flash_attention launched "
+                     f"{counts['flash_attention']} times, not {want_fa}")
+            if tag == "fp32":
+                with mock_.patch.object(attention_mod, "flash_attention",
+                                        fa.flash_attention_plain), \
+                        mock_.patch.object(blocks_mod, "ssm_scan",
+                                           ss.ssm_scan_plain):
+                    ops.reset_launch_counts()
+                    p = serve.generate(params, cfg, prompts, gen_tokens, ctx)
+                    if any(ops.launch_counts().values()):
+                        fail(f"zoo {label}: the plain path launched a kernel")
+                a_, b_ = g.prefill_logits.float(), p.prefill_logits.float()
+                err = float((a_ - b_).abs().max())
+                scale = float(b_.abs().max())
+                same = bool((g.tokens == p.tokens).all())
+                log(f"zoo {label} check: prefill logits max abs err "
+                    f"{err:.4e} of max |logit| {scale:.4f} (share "
+                    f"{err / scale:.3e}, tolerance 1e-4); greedy tokens "
+                    f"equal {same}")
+                if not (err <= 1e-4 * scale and same):
+                    fail(f"zoo {label}: the kernels' fp32 generation differs"
+                         " from the plain versions'")
+            del params, prompts, ctx, g
+    if zoo_counts["flash_attention"] <= 0:
+        fail("kernel flash_attention was never launched on the zoo path")
+    return train_counts, zoo_counts
 
 
 def phase_mark(n: int, name: str, _t0=time.time()) -> None:
@@ -2298,8 +2741,12 @@ def main() -> None:
         "cuda", os.path.join(CAMPAIGN_ROOT, GRID["name"]),
         os.path.join(CAMPAIGN_ROOT, "phase12"), timed=timed)
 
-    # ---- 13. results ------------------------------------------------------
-    phase_mark(13, "results")
+    # ---- 13. LM training and the rest of the zoo -----------------------------
+    phase_mark(13, "LM training and the rest of the zoo")
+    train_counts, zoo_counts = lm_training_zoo(dev, timings, errs)
+
+    # ---- 14. results ------------------------------------------------------
+    phase_mark(14, "results")
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
     # batch's (B = 448; 256 samples per SAC update) with the campaign's;
@@ -2322,7 +2769,14 @@ def main() -> None:
             ("flash_attention", "src/repro/kernels/flash_attention.py:91",
              "a", "q[4,32,512,128],kv[4,8,512,128],fp16,causal", lm_counts),
             ("ssm_scan", "src/repro/kernels/ssm_scan.py:66", "b",
-             "[4,512,8192],N=16,fp32", lm_counts)):
+             "[4,512,8192],N=16,fp32", lm_counts),
+            # no TPU kernel: XLA's gradient of the reference's jnp
+            # attention and remat-chunked scan (phase 13's train path)
+            ("flash_attention_backward", "src/repro/models/attention.py:29",
+             "smollm", "q[8,9,1024,64],kv[8,3,1024,64],bf16,causal",
+             train_counts),
+            ("ssm_scan_backward", "src/repro/models/blocks.py:349", "c",
+             "[2,512,8192],N=16,fp32", train_counts)):
         ms, plain, bnd, by, term, call, library_ms = timings[(name, key)]
         source = src + ("policy_mlp.cu" if name == "fused_mlp"
                         else name + ".cu")
@@ -2334,7 +2788,8 @@ def main() -> None:
             launches_by_path={path: c.get(name, 0) for path, c in (
                 ("single", counts), ("campaign", camp_counts),
                 ("scenario", scen_counts), ("scalar", scalar["sac"][1]),
-                ("lm", lm_counts), *fleet_counts.items(),
+                ("lm", lm_counts), ("train", train_counts),
+                ("lm_zoo", zoo_counts), *fleet_counts.items(),
                 *phase12.items())}))
     # fused_mlp also at the index surrogate's serving shape (phase 12)
     ms, plain, bnd, by, term, call, library_ms = timings[("fused_mlp",

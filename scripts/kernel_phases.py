@@ -343,8 +343,8 @@ def ssm_phases(lib, dev, stream, marks):
     for _ in range(5):
         build.check(lib.ssm_scan_forward(
             dt.data_ptr(), bc[0].data_ptr(), bc[1].data_ptr(), x.data_ptr(),
-            a.data_ptr(), None, y.data_ptr(), h.data_ptr(), B, S, D, N,
-            stream), "ssm_scan")
+            a.data_ptr(), None, y.data_ptr(), h.data_ptr(), None, B, S, D,
+            N, stream), "ssm_scan")
     torch.cuda.synchronize()
     blocks = -(-D // 128) * B     # 128 channels a block
     m = marks("ssm_scan", blocks, 6, raw=True)
@@ -380,8 +380,8 @@ def flash_phases(lib, dev, stream, marks):
         o = torch.empty_like(q)
         for _ in range(5):
             build.check(lib.flash_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hk, S, S, 128, *q.stride()[:3], *k.stride()[:3],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+                B, H, Hk, S, S, 128, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *o.stride()[:3], 1, 0, 128 ** -0.5, 0,
                 stream), "flash_attention")
         torch.cuda.synchronize()

@@ -9,8 +9,11 @@ Leaf names follow the reference's: ``/``-joined dict keys in sorted key
 order, NamedTuple fields prefixed with ``.`` in field order, sequence
 items by index.  A tree of tensors saved here therefore carries the same
 names, shapes and dtypes as the reference's tree of the same structure,
-and each package reads the other's checkpoints with ``restore_flat``.
-Tensors are copied to host numpy arrays; bfloat16 is not supported.
+and each package reads the other's checkpoints (``restore_flat``, and
+``restore`` into a template tree such as the trainer's ``TrainState``).
+Tensors are copied to host numpy arrays; a bfloat16 leaf is stored as its
+2-byte bits (uint16) under a ``bfloat16`` dtype tag, as the reference
+stores its own.
 """
 from __future__ import annotations
 
@@ -47,14 +50,33 @@ def _leaves_with_names(tree: Any, prefix: str = ""
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            raise ValueError("bfloat16 leaves are not supported")
-        return leaf.detach().cpu().numpy()
+            return leaf.view(torch.int16).numpy().view(np.uint16)
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {name: _to_numpy(leaf) for name, leaf in _leaves_with_names(tree)}
+def _flatten(tree: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+    """(name -> host array, name -> dtype tag): bfloat16 for a bf16
+    tensor, whose array holds its bits."""
+    arrays, dtypes = {}, {}
+    for name, leaf in _leaves_with_names(tree):
+        arrays[name] = _to_numpy(leaf)
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+        dtypes[name] = "bfloat16" if bf16 else str(arrays[name].dtype)
+    return arrays, dtypes
+
+
+def _to_tensor(arr: np.ndarray, dtype_tag: str, device) -> torch.Tensor:
+    """A restored array as a tensor on ``device``: a ``bfloat16`` leaf's
+    bits back to bfloat16."""
+    arr = np.array(arr, order="C")       # a copy, 0-d arrays kept 0-d
+    if dtype_tag == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
 
 
 def leaf_names(tree: Any) -> List[str]:
@@ -102,10 +124,10 @@ def _json_safe(obj: Any) -> Any:
 def save(tree: Any, ckpt_dir: str, step: int, *, keep: int = 3,
          extra: Optional[Dict] = None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = _flatten(tree)
+    flat, dtypes = _flatten(tree)
     manifest = dict(step=int(step),
                     names=list(flat.keys()),
-                    dtypes={k: str(v.dtype) for k, v in flat.items()},
+                    dtypes=dtypes,
                     shapes={k: list(v.shape) for k, v in flat.items()},
                     extra=_json_safe(extra or {}))
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
@@ -159,7 +181,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_flat(ckpt_dir: str, step: Optional[int] = None
                  ) -> Tuple[Dict[str, np.ndarray], Dict]:
     """Raw host-side restore: (flat name -> np.ndarray, manifest), float64
-    leaves (the PER sum-tree) included as written."""
+    leaves (the PER sum-tree) included as written, and a leaf the manifest
+    tags ``bfloat16`` as its uint16 bits (numpy has no bfloat16;
+    :func:`restore` makes the tensor)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -167,12 +191,34 @@ def restore_flat(ckpt_dir: str, step: Optional[int] = None
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        out = {}
-        for name in manifest["names"]:
-            if manifest["dtypes"][name] == "bfloat16":
-                raise ValueError(f"{name}: bfloat16 leaves are not supported")
-            out[name] = data[name]
+        out = {name: data[name] for name in manifest["names"]}
     return out, manifest
+
+
+def _map_named(tree: Any, fn, prefix: str = "") -> Any:
+    """``tree`` with each leaf replaced by fn(name, leaf), the names those
+    of :func:`_leaves_with_names`."""
+    join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, join(k)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_map_named(getattr(tree, f), fn, join("." + f))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(v, fn, join(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def restore(template: Any, ckpt_dir: str, step: Optional[int] = None) -> Any:
+    """Restore into the template's structure (port of the reference's
+    ``restore``): each leaf taken by its name, in the checkpoint's dtype
+    (bfloat16 kept), on the template leaf's device.  There is no
+    ``shardings`` argument: the port trains on one device."""
+    flat, manifest = restore_flat(ckpt_dir, step)
+    return _map_named(template, lambda name, leaf: _to_tensor(
+        flat[name], manifest["dtypes"][name],
+        leaf.device if isinstance(leaf, torch.Tensor) else "cpu"))
 
 
 def manifest_of(ckpt_dir: str, step: Optional[int] = None) -> Dict:

@@ -36,9 +36,11 @@ SIGNATURES = {
     "sumtree_set_many": [_P, _P, _P, _D, _I, _L, _P],
     "sumtree_sample": [_P, _P, _P, _I, _L, _L, _P],
     "fused_mlp_forward": [_P] * 8 + [_I] * 6 + [_P],
-    "flash_attention_forward": [_P] * 4 + [_I] * 6 + [_L] * 12
+    "flash_attention_forward": [_P] * 5 + [_I] * 6 + [_L] * 12
     + [_I, _I, _D, _I, _P],
-    "ssm_scan_forward": [_P] * 8 + [_I] * 4 + [_P],
+    "flash_attention_backward": [_P] * 11 + [_I] * 8 + [_D, _I, _P],
+    "ssm_scan_forward": [_P] * 9 + [_I] * 4 + [_P],
+    "ssm_scan_backward": [_P] * 17 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

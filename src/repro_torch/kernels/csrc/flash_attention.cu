@@ -291,7 +291,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 template <int HDP>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int BH, int H,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int BH, int H,
     int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
@@ -446,6 +447,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
     inv[r] = 1.0f / fmaxf(l[r], 1e-30f);
+    const int qi = wq0 + g + 8 * r;
+    if (lse != nullptr && t == 0 && qi < Sq)
+      lse[(long long)bh * Sq + qi] = m[r] + log2f(fmaxf(l[r], 1e-30f));
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -467,12 +471,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 }
 
 template <int HDP>
-int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hk, int Sq, int Sk, int hd, long long qsb,
-               long long qsh, long long qss, long long ksb, long long ksh,
-               long long kss, long long vsb, long long vsh, long long vss,
-               long long osb, long long osh, long long oss, int causal,
-               int window, float scale, int vec, cudaStream_t stream) {
+int launch_hdp(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Hk, int Sq, int Sk, int hd,
+               long long qsb, long long qsh, long long qss, long long ksb,
+               long long ksh, long long kss, long long vsb, long long vsh,
+               long long vss, long long osb, long long osh, long long oss,
+               int causal, int window, float scale, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)Layout<HDP>::FLOATS;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<HDP>,
@@ -482,18 +486,18 @@ int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attention_kernel<HDP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), B * H, H, Hk, Sq,
-      Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, B * H, H, Hk,
+      Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
       causal, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int hd, long long qsb,
-           long long qsh, long long qss, long long ksb, long long ksh,
-           long long kss, long long vsb, long long vsh, long long vss,
-           long long osb, long long osh, long long oss, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int Hk, int Sq, int Sk, int hd,
+           long long qsb, long long qsh, long long qss, long long ksb,
+           long long ksh, long long kss, long long vsb, long long vsh,
+           long long vss, long long osb, long long osh, long long oss,
+           int causal, int window, float scale, cudaStream_t stream) {
   // 16-byte copies: every base 16-byte aligned, every stride and hd a
   // multiple of 4 floats
   const auto al = [](const void* p) {
@@ -505,8 +509,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   auto fn = hd <= 32   ? &launch_hdp<32>
             : hd <= 64 ? &launch_hdp<64>
                        : &launch_hdp<128>;
-  return fn(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss,
-            vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
+  return fn(q, k, v, o, lse, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh,
+            kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
             stream);
 }
 
@@ -616,7 +620,8 @@ __device__ __forceinline__ void load_tile(uint16_t* dst,
 template <typename T, int HDP>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int BH, int H,
+    const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+    float* __restrict__ lse, int BH, int H,
     int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
@@ -735,6 +740,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
+    const int qi = wq0 + g + 8 * r;
+    if (lse != nullptr && t == 0 && qi < Sq)
+      lse[(long long)bh * Sq + qi] = m[r] + log2f(l[r]);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -765,12 +773,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 }
 
 template <typename T, int HDP>
-int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hk, int Sq, int Sk, int hd, long long qsb,
-               long long qsh, long long qss, long long ksb, long long ksh,
-               long long kss, long long vsb, long long vsh, long long vss,
-               long long osb, long long osh, long long oss, int causal,
-               int window, float scale, int vec, cudaStream_t stream) {
+int launch_hdp(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Hk, int Sq, int Sk, int hd,
+               long long qsb, long long qsh, long long qss, long long ksb,
+               long long ksh, long long kss, long long vsb, long long vsh,
+               long long vss, long long osb, long long osh, long long oss,
+               int causal, int window, float scale, int vec, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, HDP>,
@@ -780,19 +788,19 @@ int launch_hdp(const void* q, const void* k, const void* v, void* o, int B,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attention_kernel<T, HDP><<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), B * H, H,
-      Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-      oss, causal, window, scale, vec);
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), lse, B * H,
+      H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
+      osh, oss, causal, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int hd, long long qsb,
-           long long qsh, long long qss, long long ksb, long long ksh,
-           long long kss, long long vsb, long long vsh, long long vss,
-           long long osb, long long osh, long long oss, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int Hk, int Sq, int Sk, int hd,
+           long long qsb, long long qsh, long long qss, long long ksb,
+           long long ksh, long long kss, long long vsb, long long vsh,
+           long long vss, long long osb, long long osh, long long oss,
+           int causal, int window, float scale, cudaStream_t stream) {
   // 16-byte copies: every base 16-byte aligned, every stride and hd a
   // multiple of 8 elements
   const auto al = [](const void* p) {
@@ -804,8 +812,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   auto fn = hd <= 32   ? &launch_hdp<T, 32>
             : hd <= 64 ? &launch_hdp<T, 64>
                        : &launch_hdp<T, 128>;
-  return fn(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh, kss,
-            vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
+  return fn(q, k, v, o, lse, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss, ksb, ksh,
+            kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale, (int)vec,
             stream);
 }
 
@@ -814,11 +822,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 fp32 (3xTF32 kernel), 1 fp16, 2 bf16 (fp16/bf16 kernel).
-// Strides in elements; hd <= 128.  Returns the CUDA error code of the
-// launch (0 on success).
+// Strides in elements; hd <= 128.  lse, when not null, is a contiguous
+// float32 [B,H,Sq] that receives each row's base-2 log-sum-exp m + log2(l)
+// (the scores pre-multiplied by scale * log2 e), which the backward kernel
+// (flash_attention_backward.cu) reads; null writes nothing.  Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_forward(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int H, int Hk, int Sq, int Sk, int hd, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, int causal, int window, double scale,
@@ -828,15 +839,16 @@ extern "C" int flash_attention_forward(
   const float sc = (float)scale;
   switch (dtype) {
     case 0:
-      return tf32::launch(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
+      return tf32::launch(q, k, v, o, lse, B, H, Hk, Sq, Sk, hd, qsb, qsh, qss,
                           ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
                           causal, window, sc, s);
     case 1:
-      return tc::launch<__half>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb, qsh,
+      return tc::launch<__half>(q, k, v, o, lse, B, H, Hk, Sq, Sk, hd, qsb, qsh,
                                 qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
                                 oss, causal, window, sc, s);
     case 2:
-      return tc::launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, hd, qsb,
+      return tc::launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Sk, hd,
+                                       qsb,
                                        qsh, qss, ksb, ksh, kss, vsb, vsh,
                                        vss, osb, osh, oss, causal, window,
                                        sc, s);

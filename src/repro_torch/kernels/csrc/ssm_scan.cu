@@ -56,6 +56,10 @@ constexpr int TCH = 8 * LANES;       // time steps a stage: 16 KB of dt, x
 constexpr int MIN_BLOCKS = LANES;    // blocks an SM (the grid: B D LANES / 256)
 static_assert(LANES == 1 || LANES == 2 || LANES == 4, "SSM_LANES: 1, 2, 4");
 constexpr float LOG2E = 1.4426950408889634f;
+// steps between the states a forward that feeds a backward saves (the
+// reference's MAMBA_CHUNK; ssm_scan_backward.cu's CHUNK)
+constexpr int SAVE_EVERY = 128;
+static_assert(SAVE_EVERY % TCH == 0, "a saved state starts a stage");
 
 struct Stage {
   float dt[TCH][CH];                 // dt of each step and channel
@@ -117,7 +121,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ssm_scan_kernel(
     const float* __restrict__ dt, const float* __restrict__ bm,
     const float* __restrict__ cm, const float* __restrict__ x,
     const float* __restrict__ a, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_out, int S, int D, int N) {
+    float* __restrict__ y, float* __restrict__ h_out,
+    float* __restrict__ h_chunks, int S, int D, int N) {
   static_assert(CH % V == 0 && N_MAX % V == 0, "whole pieces");
   __shared__ __align__(16) Stage ring[2];
 
@@ -151,6 +156,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ssm_scan_kernel(
     __syncthreads();   // every thread's copies of chunk c have landed
     const Stage& st = ring[c % 2];
     const int nt = min(TCH, S - t0);
+    if (h_chunks != nullptr && t0 % SAVE_EVERY == 0 && live) {
+      // the state before step t0: where the backward's recompute starts
+      float* hc = h_chunks +
+                  (((long long)b * ((S + SAVE_EVERY - 1) / SAVE_EVERY) +
+                    t0 / SAVE_EVERY) * D + d) * N;
+#pragma unroll
+      for (int i = 0; i < SPL; ++i)
+        if (SPL * sub + i < N) hc[SPL * sub + i] = h[i];
+    }
     float* yp = y + (row0 + t0) * D + d;
 #pragma unroll 4
     for (int tt = 0; tt < nt; ++tt) {
@@ -195,19 +209,21 @@ bool aligned16(const float* p) {
 
 }  // namespace
 
-// h0 may be null (a zero initial state).  Returns the CUDA error code of
-// the launch (0 on success).
+// h0 may be null (a zero initial state).  h_chunks, when not null, is a
+// float32 [B, ceil(S / 128), D, N] that receives the state before every
+// 128th step (the backward kernel's starting points); null writes
+// nothing.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int ssm_scan_forward(const float* dt, const float* b_in,
                                 const float* c_in, const float* x,
                                 const float* a, const float* h0, float* y,
-                                float* h_out, int B, int S, int D, int N,
-                                void* stream) {
+                                float* h_out, float* h_chunks, int B, int S,
+                                int D, int N, void* stream) {
   if (N < 1 || N > N_MAX || B < 1 || D < 1) return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && N % 4 == 0 && aligned16(dt) &&
                    aligned16(b_in) && aligned16(c_in) && aligned16(x);
   auto kernel = vec ? ssm_scan_kernel<4> : ssm_scan_kernel<1>;
   const dim3 grid((D + CH - 1) / CH, B);
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dt, b_in, c_in, x, a, h0, y, h_out, S, D, N);
+      dt, b_in, c_in, x, a, h0, y, h_out, h_chunks, S, D, N);
   return (int)cudaGetLastError();
 }

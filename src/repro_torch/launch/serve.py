@@ -7,11 +7,12 @@ synthetic prompts, reporting the prefill time and decode tokens/s.
     python -m repro_torch.launch.serve --arch llama3.1-8b --reduced \
         --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu
 
-Every attention-only config of the zoo serves (``llama3.1-8b``,
+Every config of the zoo serves: the attention-only ones (``llama3.1-8b``,
 ``smolvlm``, ``smollm-135m``, ``qwen1.5-110b``, ``qwen2-72b``,
-``mixtral-8x7b``, ``llama4-maverick-400b-a17b``), and ``jamba-v0.1-52b``
-with its Mamba layers; the rest (MLA, cross-attention, the Whisper encoder,
-xLSTM) is refused by name.
+``mixtral-8x7b``, ``llama4-maverick-400b-a17b``), ``minicpm3-4b`` (MLA),
+``llama-3.2-vision-90b`` (cross-attention onto stub image embeddings),
+``whisper-medium`` (its encoder over stub frame embeddings),
+``jamba-v0.1-52b`` with its Mamba layers and ``xlstm-1.3b``.
 
 Recommendation server (:func:`recommend_server`): design queries over
 finished campaign run directories, answered by
@@ -91,18 +92,20 @@ def generate(params, cfg: ArchConfig, prompts: torch.Tensor,
 
 def inputs(cfg: ArchConfig, batch: int, prompt_len: int, seed: int,
            device) -> tuple:
-    """Parameters, prompts and (for a prefix VLM) context embeddings from
-    three separate streams of ``seed``, so that no draw repeats another."""
+    """Parameters, prompts and context embeddings (a VLM's images, or an
+    encoder-decoder's ``n_audio_frames`` frames) from three separate
+    streams of ``seed``, so that no draw repeats another."""
     dev = device_mod.resolve(device)
     params = lm.init_params(cfg, seed=3 * seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(3 * seed + 1)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                             device=dev)
     ctx = None
-    if cfg.n_context_tokens:
+    if cfg.n_context_tokens or cfg.is_encdec:
+        n = cfg.n_audio_frames if cfg.is_encdec else cfg.n_context_tokens
         gen = torch.Generator(device=dev).manual_seed(3 * seed + 2)
-        ctx = (torch.randn((batch, cfg.n_context_tokens, cfg.d_model),
-                           generator=gen, device=dev)
+        ctx = (torch.randn((batch, n, cfg.d_model), generator=gen,
+                           device=dev)
                * 0.1).to(L.dtype_of(cfg.param_dtype))
     return params, prompts, ctx
 

@@ -12,6 +12,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import einsum_f32
@@ -20,22 +21,29 @@ NEG_INF = -1e30
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0) -> torch.Tensor:
-    """Causal attention. q: [B, Sq, H, hd]; k/v: [B, Sk, Hk, hd] (GQA:
-    H % Hk == 0) -> [B, Sq, H, hd].  window > 0 applies sliding-window
-    masking.  The kernel reads the transposed views in place and writes q's
-    layout."""
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, Sq, H, hd]; k: [B, Sk, Hk, hd], v: [B, Sk, Hk, vd] (GQA:
+    H % Hk == 0) -> [B, Sq, H, vd].  ``causal`` masks later keys (the
+    Whisper encoder and cross-attention call with False); window > 0
+    applies sliding-window masking.  The kernel reads the transposed views
+    in place and writes q's layout.  A v narrower than q (MLA: 64 against
+    96) is zero-padded to q's width for the kernel, which takes one width,
+    and the output sliced back: exact, and autograd carries the pad; the
+    scale stays 1/sqrt(hd), q's own, as in the reference."""
+    vd = v.shape[-1]
+    if vd < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - vd))
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=window)
-    return o.transpose(1, 2).to(v.dtype)
+                        v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)[..., :vd].to(v.dtype)
 
 
-def _scale(hd: int) -> float:
+def scale_of(hd: int) -> float:
     """1 / sqrt(hd) in float32, as the reference computes it."""
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def _valid(S: int, length, device) -> torch.Tensor:
+def valid_positions(S: int, length, device) -> torch.Tensor:
     """[B or 1, S]: positions below ``length`` (a tensor, scalar or [B])."""
     pos = torch.arange(S, device=device)
     return pos[None, :] < torch.as_tensor(length, device=device).reshape(-1, 1)
@@ -57,8 +65,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, S, Hk, hd = k_cache.shape
     H = q.shape[2]
     s = einsum_f32("bqgrd,bkgd->bgrqk", _grouped(q, Hk), k_cache)
-    s = s.reshape(B, H, 1, S) * _scale(hd)
-    valid = _valid(S, length, q.device)
+    s = s.reshape(B, H, 1, S) * scale_of(hd)
+    valid = valid_positions(S, length, q.device)
     if window and window > 0:
         lo = torch.as_tensor(length, device=q.device).reshape(-1, 1) - window
         valid = valid & (torch.arange(S, device=q.device)[None, :] >= lo)
@@ -79,8 +87,9 @@ def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
     H = q.shape[2]
     qg = _grouped(q.to(k_cache.dtype), Hk)
     s = einsum_f32("bqgrd,bkgd->bgrqk", qg, k_cache).reshape(B, H, 1, S)
-    s = s * _scale(q.shape[-1])
-    s = s.masked_fill(~_valid(S, length, q.device)[:, None, None, :], NEG_INF)
+    s = s * scale_of(q.shape[-1])
+    valid = valid_positions(S, length, q.device)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     m = torch.amax(s, dim=-1)                              # [B,H,1]
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)                               # [B,H,1]
@@ -107,8 +116,9 @@ def merge_attention(parts, out_dtype):
 def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write [B, 1, Hk, hd] new KV at position ``pos`` (a tensor; the caller
-    keeps it in range) into copies of the caches."""
+    """Write [B, 1, ...] new entries (KV heads, or MLA's latent and rotary
+    key) at position ``pos`` of axis 1 (a tensor; the caller keeps it in
+    range) into copies of the caches."""
     idx = torch.as_tensor(pos, device=k_cache.device).reshape(1).long()
     return (k_cache.index_copy(1, idx, k_new.to(k_cache.dtype)),
             v_cache.index_copy(1, idx, v_new.to(v_cache.dtype)))

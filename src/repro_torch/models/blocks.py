@@ -1,16 +1,19 @@
-"""Transformer-family blocks (port of ``repro.models.blocks``): GQA
-attention with optional sliding windows, dense and MoE FFNs, and Mamba.
+"""Transformer-family blocks (port of ``repro.models.blocks``): GQA, MLA
+and cross-attention with optional sliding windows, dense and MoE FFNs,
+Mamba, and the xLSTM blocks (mLSTM in its chunked linear-attention form,
+sLSTM as a recurrence).
 
 Each block kind provides, as in the reference:
   block_init(gen, cfg, kind, moe_on, lead)            -> params
-  block_apply(params, cfg, kind, moe_on, x, ...)      full sequence (prefill)
+  block_apply(params, cfg, kind, moe_on, x, ...)      full sequence
   block_decode(params, cfg, kind, moe_on, x_t, cache, pos)   one token
   init_cache(cfg, kind, batch, cache_len, dtype, device)     -> cache dict
 
-Prefill attention runs the ``flash_attention`` kernel and the Mamba prefill
-the ``ssm_scan`` kernel, where the reference runs their jnp oracles.  The
-port has the kinds ``attn`` and ``mamba`` without MLA; ``repro_torch.models
-.lm`` refuses a config that needs another.
+Full-sequence attention (self, cross and the Whisper encoder's) runs the
+``flash_attention`` kernel and the Mamba scan the ``ssm_scan`` kernel,
+where the reference runs their jnp oracles; with a gradient, their
+backward kernels.  The xLSTM blocks are torch ops, as the reference's are
+jnp (it has no kernel for them).
 """
 from __future__ import annotations
 
@@ -20,13 +23,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig, MambaConfig
+from repro_torch.configs.base import ArchConfig, MambaConfig, XLSTMConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
+MLSTM_CHUNK = 128
 MOE_CAPACITY = 1.25
 KV_TAIL = 64   # two-tier decode cache: local ring-tail capacity
+
+
+def _xlstm_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
+    xc = cfg.xlstm or XLSTMConfig()
+    quant = 16 * cfg.n_heads
+    di = max(quant, int(cfg.d_model * xc.proj_factor) // quant * quant)
+    dqk = max(quant, int(di * xc.d_qk_factor) // quant * quant)
+    return di, dqk, cfg.n_heads
 
 
 # ===========================================================================
@@ -40,11 +52,39 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
     lin = lambda n_in, n_out, **kw: L.linear_init(gen, n_in, n_out, dt,
                                                   lead=lead, **kw)
     p: Dict = dict(norm1=L.rmsnorm_init(d, dt, dev, lead))
-    if kind == "attn":
-        p.update(wq=lin(d, H * hd, bias=cfg.qkv_bias),
-                 wk=lin(d, Hk * hd, bias=cfg.qkv_bias),
-                 wv=lin(d, Hk * hd, bias=cfg.qkv_bias),
-                 wo=lin(H * hd, d))
+    if kind in ("attn", "xattn"):
+        if cfg.mla is not None:
+            m = cfg.mla
+            qk_d = m.qk_nope_head_dim + m.qk_rope_head_dim
+            p.update(
+                wdq=lin(d, m.q_lora_rank),
+                q_norm=L.rmsnorm_init(m.q_lora_rank, dt, dev, lead),
+                wuq=lin(m.q_lora_rank, H * qk_d),
+                wdkv=lin(d, m.kv_lora_rank + m.qk_rope_head_dim),
+                kv_norm=L.rmsnorm_init(m.kv_lora_rank, dt, dev, lead),
+                wukv=lin(m.kv_lora_rank,
+                         H * (m.qk_nope_head_dim + m.v_head_dim)),
+                wo=lin(H * m.v_head_dim, d))
+        else:
+            p.update(wq=lin(d, H * hd, bias=cfg.qkv_bias),
+                     wk=lin(d, Hk * hd, bias=cfg.qkv_bias),
+                     wv=lin(d, Hk * hd, bias=cfg.qkv_bias),
+                     wo=lin(H * hd, d))
+        if kind == "xattn":   # cross-attention onto context tokens
+            p.update(x_norm=L.rmsnorm_init(d, dt, dev, lead),
+                     x_wq=lin(d, H * hd), x_wk=lin(d, Hk * hd),
+                     x_wv=lin(d, Hk * hd), x_wo=lin(H * hd, d),
+                     x_gate=torch.zeros(lead + (d,), dtype=dt, device=dev))
+    elif kind == "mlstm":
+        di, dqk, Hx = _xlstm_dims(cfg)
+        p.update(up=lin(d, 2 * di), wq=lin(di, dqk), wk=lin(di, dqk),
+                 wv=lin(di, di), gates=lin(di, 2 * Hx),   # i, f per head
+                 ln=L.rmsnorm_init(di, dt, dev, lead), down=lin(di, d))
+    elif kind == "slstm":
+        di, _, _ = _xlstm_dims(cfg)
+        p.update(up=lin(d, di), wx=lin(di, 4 * di),
+                 wr=lin(di, 4 * di, scale=0.02),
+                 ln=L.rmsnorm_init(di, dt, dev, lead), down=lin(di, d))
     elif kind == "mamba":
         mc = cfg.mamba or MambaConfig()
         di = mc.expand * d
@@ -65,7 +105,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
         raise ValueError(kind)
 
     # ---- FFN / MoE --------------------------------------------------------
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         p["norm2"] = L.rmsnorm_init(d, dt, dev, lead)
         if moe_on:
             m = cfg.moe
@@ -205,27 +245,60 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 # ===========================================================================
-# attention block (full sequence)
+# attention blocks (full sequence)
 # ===========================================================================
 def _attn_qkv(p: Dict, cfg: ArchConfig, h: torch.Tensor, positions):
+    """q, k, v [B,S,heads,width] and the prefill cache (k/v, or MLA's
+    compressed latent ckv and its shared rotary key krope)."""
     B, S, _ = h.shape
     hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+        q = L.linear(p["wuq"], L.rmsnorm(p["q_norm"], L.linear(p["wdq"], h),
+                                         cfg.norm_eps))
+        q = q.reshape(B, S, H, nope + rope)
+        c, k_rope = torch.split(L.linear(p["wdkv"], h),
+                                [m.kv_lora_rank, rope], dim=-1)
+        c = L.rmsnorm(p["kv_norm"], c, cfg.norm_eps)
+        kv = L.linear(p["wukv"], c).reshape(B, S, H, nope + m.v_head_dim)
+        k_nope, v = torch.split(kv, [nope, m.v_head_dim], dim=-1)
+        q_nope, q_rope = torch.split(q, [nope, rope], dim=-1)
+        q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = L.apply_rope(k_rope.reshape(B, S, 1, rope), positions,
+                              cfg.rope_theta)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+        return q_full, k_full, v, dict(ckv=c, krope=k_rope)
     q = L.linear(p["wq"], h).reshape(B, S, H, hd)
     k = L.linear(p["wk"], h).reshape(B, S, Hk, hd)
     v = L.linear(p["wv"], h).reshape(B, S, Hk, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, dict(k=k, v=v)
 
 
-def _attn_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, positions,
-                collect: bool):
+def _attn_apply(p: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor, ctx,
+                positions, causal: bool, collect: bool):
     B, S, _ = x.shape
+    hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    q, k, v = _attn_qkv(p, cfg, h, positions)
-    o = attn.chunked_attention(q, k, v, window=cfg.sliding_window)
+    q, k, v, cache = _attn_qkv(p, cfg, h, positions)
+    o = attn.chunked_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window)
     x = x + L.linear(p["wo"], o.reshape(B, S, -1))
-    return x, (dict(k=k, v=v) if collect else None)
+    if kind == "xattn" and ctx is not None:
+        hx = L.rmsnorm(p["x_norm"], x, cfg.norm_eps)
+        Sc = ctx.shape[1]
+        qx = L.linear(p["x_wq"], hx).reshape(B, S, H, hd)
+        kx = L.linear(p["x_wk"], ctx).reshape(B, Sc, Hk, hd)
+        vx = L.linear(p["x_wv"], ctx).reshape(B, Sc, Hk, hd)
+        ox = attn.chunked_attention(qx, kx, vx, causal=False)
+        gate = torch.tanh(p["x_gate"].float()).to(x.dtype)
+        x = x + gate * L.linear(p["x_wo"], ox.reshape(B, S, H * hd))
+        if collect:
+            cache = dict(cache, xk=kx, xv=vx)
+    return x, (cache if collect else None)
 
 
 # ===========================================================================
@@ -281,57 +354,229 @@ def _mamba_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
 
 
 # ===========================================================================
+# xLSTM blocks
+# ===========================================================================
+def _mlstm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
+    """Chunked linear-attention form of mLSTM (sigmoid-stabilised gates):
+    the reference's ``lax.scan`` over chunks is a loop."""
+    B, S, _ = x.shape
+    di, dqk, H = _xlstm_dims(cfg)
+    dqk_h, dv_h = dqk // H, di // H
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    u, z = torch.chunk(L.linear(p["up"], h), 2, dim=-1)        # [B,S,di]
+    q = L.linear(p["wq"], u).reshape(B, S, H, dqk_h).float()
+    # a numpy scalar is a float32 array to the reference: k is float32
+    k = L.linear(p["wk"], u).reshape(B, S, H, dqk_h).float() \
+        / float(np.sqrt(dqk_h))
+    v = L.linear(p["wv"], u).reshape(B, S, H, dv_h).float()
+    gts = L.linear(p["gates"], u).float().reshape(B, S, 2, H)
+    ig = torch.sigmoid(gts[:, :, 0])                             # [B,S,H]
+    fg = torch.sigmoid(gts[:, :, 1] + 4.0)             # forget bias -> ~1
+    n_chunks = max(1, S // MLSTM_CHUNK) if S % MLSTM_CHUNK == 0 else 1
+    ch = S // n_chunks
+    tri = torch.tril(torch.ones((ch, ch), dtype=torch.bool, device=x.device))
+    C = torch.zeros((B, H, dqk_h, dv_h), dtype=torch.float32, device=x.device)
+    outs = []
+    for i in range(n_chunks):
+        sl = slice(i * ch, (i + 1) * ch)
+        qi, ki, vi, ii = q[:, sl], k[:, sl], v[:, sl], ig[:, sl]
+        cum = torch.cumsum(torch.log(torch.clamp_min(fg[:, sl], 1e-6)),
+                           dim=1)                                # inclusive
+        # intra-chunk: D[t,s] = exp(cum_t - cum_s) * i_s for s <= t
+        dmask = cum[:, :, None] - cum[:, None, :]                # [B,t,s,H]
+        dmat = torch.where(tri[None, :, :, None],
+                           torch.exp(dmask) * ii[:, None, :, :], 0.0)
+        scores = torch.einsum("bthd,bshd->btsh", qi, ki)
+        o_intra = torch.einsum("btsh,bshe->bthe", scores * dmat, vi)
+        # inter-chunk: q_t decayed to the chunk start @ C
+        o_inter = torch.einsum("bthd,bhde->bthe",
+                               qi * torch.exp(cum)[..., None], C)
+        # C' = F_total C + sum_s exp(cum_end - cum_s) i_s k_s v_s^T
+        f_tot = torch.exp(cum[:, -1])                            # [B,H]
+        w = torch.exp(cum[:, -1:, :] - cum) * ii                 # [B,ch,H]
+        C = f_tot[:, :, None, None] * C + torch.einsum(
+            "bshd,bshe->bhde", ki * w[..., None], vi)
+        outs.append((o_intra + o_inter).to(x.dtype))
+    o = torch.cat(outs, dim=1).reshape(B, S, di)
+    o = L.rmsnorm(p["ln"], o, cfg.norm_eps)
+    o = o * F.silu(z.float()).to(x.dtype)
+    out = x + L.linear(p["down"], o)
+    return out, (dict(C=C) if collect else None)
+
+
+def _mlstm_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
+    B = x_t.shape[0]
+    di, dqk, H = _xlstm_dims(cfg)
+    dqk_h, dv_h = dqk // H, di // H
+    h = L.rmsnorm(p["norm1"], x_t, cfg.norm_eps)
+    u, z = torch.chunk(L.linear(p["up"], h)[:, 0], 2, dim=-1)
+    q = L.linear(p["wq"], u).reshape(B, H, dqk_h).float()
+    k = L.linear(p["wk"], u).reshape(B, H, dqk_h).float() \
+        / float(np.sqrt(dqk_h))
+    v = L.linear(p["wv"], u).reshape(B, H, dv_h).float()
+    gts = L.linear(p["gates"], u).float().reshape(B, 2, H)
+    ig = torch.sigmoid(gts[:, 0])
+    fg = torch.sigmoid(gts[:, 1] + 4.0)
+    C = fg[..., None, None] * cache["C"] \
+        + ig[..., None, None] * torch.einsum("bhd,bhe->bhde", k, v)
+    o = torch.einsum("bhd,bhde->bhe", q, C).reshape(B, di)
+    o = L.rmsnorm(p["ln"], o.to(x_t.dtype), cfg.norm_eps)
+    o = o * F.silu(z.float()).to(x_t.dtype)
+    out = x_t + L.linear(p["down"], o)[:, None]
+    return out, dict(C=C)
+
+
+def _slstm_cell(p: Dict, wx_t: torch.Tensor, h_prev, c_prev, dtype):
+    pre = wx_t + (h_prev.to(dtype) @ p["wr"]["w"]).float()
+    i, f, zg, o = torch.chunk(pre, 4, dim=-1)
+    c = torch.sigmoid(f + 2.0) * c_prev + torch.sigmoid(i) * torch.tanh(zg)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _slstm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
+    B, S, _ = x.shape
+    di, _, _ = _xlstm_dims(cfg)
+    u = L.linear(p["up"], L.rmsnorm(p["norm1"], x, cfg.norm_eps))
+    wx = L.linear(p["wx"], u).float()                          # [B,S,4di]
+    h = c = torch.zeros((B, di), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(S):                  # the reference's lax.scan over time
+        h, c = _slstm_cell(p, wx[:, t], h, c, x.dtype)
+        hs.append(h)
+    y = L.rmsnorm(p["ln"], torch.stack(hs, dim=1).to(x.dtype), cfg.norm_eps)
+    out = x + L.linear(p["down"], y)
+    return out, (dict(h=h, c=c) if collect else None)
+
+
+def _slstm_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
+    u = L.linear(p["up"], L.rmsnorm(p["norm1"], x_t, cfg.norm_eps))[:, 0]
+    h, c = _slstm_cell(p, L.linear(p["wx"], u).float(), cache["h"],
+                       cache["c"], x_t.dtype)
+    y = L.rmsnorm(p["ln"], h.to(x_t.dtype), cfg.norm_eps)
+    return x_t + L.linear(p["down"], y)[:, None], dict(h=h, c=c)
+
+
+# ===========================================================================
 # unified block API
 # ===========================================================================
 def block_apply(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
-                x: torch.Tensor, *, positions=None,
-                collect_cache: bool = False):
+                x: torch.Tensor, *, ctx=None, positions=None,
+                causal: bool = True, collect_cache: bool = False):
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    if kind == "attn":
-        x, cache = _attn_apply(params, cfg, x, positions, collect_cache)
+    if kind in ("attn", "xattn"):
+        x, cache = _attn_apply(params, cfg, kind, x, ctx, positions, causal,
+                               collect_cache)
     elif kind == "mamba":
         x, cache = _mamba_apply(params, cfg, x, collect_cache)
+    elif kind == "mlstm":
+        x, cache = _mlstm_apply(params, cfg, x, collect_cache)
+    elif kind == "slstm":
+        x, cache = _slstm_apply(params, cfg, x, collect_cache)
     else:
         raise ValueError(kind)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         x = _ffn(params, cfg, x)
     return x, cache
 
 
+def _mla_decode(params: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
+                positions, tpos):
+    """MLA decode with absorbed projections: only the compressed latent
+    (kv_lora_rank + rope width a token) is cached; returns (o [B,1,H,v],
+    the caches with the new tails)."""
+    B = h.shape[0]
+    m, H = cfg.mla, cfg.n_heads
+    r, nope, rope = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = L.linear(params["wuq"], L.rmsnorm(params["q_norm"],
+                                          L.linear(params["wdq"], h),
+                                          cfg.norm_eps))
+    q_nope, q_rope = torch.split(q.reshape(B, 1, H, nope + rope),
+                                 [nope, rope], dim=-1)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    c_t, krope_t = torch.split(L.linear(params["wdkv"], h), [r, rope],
+                               dim=-1)
+    c_t = L.rmsnorm(params["kv_norm"], c_t, cfg.norm_eps)
+    krope_t = L.apply_rope(krope_t.reshape(B, 1, 1, rope), positions,
+                           cfg.rope_theta)
+    ckv_tail, krope_tail = attn.cache_update(
+        cache["ckv_tail"], cache["krope_tail"], c_t, krope_t, tpos)
+    wukv = params["wukv"]["w"].reshape(r, H, nope + m.v_head_dim)
+    w_uk, w_uv = wukv[..., :nope], wukv[..., nope:]          # [r,H,*]
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+    scale = attn.scale_of(nope + rope)
+
+    def mla_stats(ckv_seg, krope_seg, length):
+        S = ckv_seg.shape[1]
+        s = (L.einsum_f32("bqhr,bsr->bhqs", q_lat.to(ckv_seg.dtype), ckv_seg)
+             + L.einsum_f32("bqhn,bsxn->bhqs", q_rope.to(krope_seg.dtype),
+                            krope_seg[:, :, 0:1]))
+        s = s * scale
+        valid = attn.valid_positions(S, length, h.device)
+        s = s.masked_fill(~valid[:, None, None, :], attn.NEG_INF)
+        mm = torch.amax(s, dim=-1)
+        pr = torch.exp(s - mm[..., None])
+        ctx = L.einsum_f32("bhqs,bsr->bqhr", pr.to(ckv_seg.dtype), ckv_seg)
+        return ctx, mm, torch.sum(pr, dim=-1)
+
+    pre = mla_stats(cache["ckv"], cache["krope"],
+                    torch.clamp_max(cache["plen"], cache["ckv"].shape[1]))
+    tail = mla_stats(ckv_tail, krope_tail, tpos + 1)
+    ctx_lat = attn.merge_attention([pre, tail], torch.float32)
+    o = torch.einsum("bqhr,rhv->bqhv", ctx_lat, w_uv.float()).to(h.dtype)
+    return o, dict(cache, ckv_tail=ckv_tail, krope_tail=krope_tail)
+
+
 def block_decode(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
                  x_t: torch.Tensor, cache: Dict, pos: int):
-    """x_t: [B,1,d]; pos: the current length."""
+    """x_t: [B,1,d]; pos: the current length.  Cross-attention reads the
+    context's keys and values cached at prefill (``xk``/``xv``)."""
     B = x_t.shape[0]
     hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         h = L.rmsnorm(params["norm1"], x_t, cfg.norm_eps)
         positions = torch.full((B, 1), pos, device=x_t.device)
         # two-tier cache: `plen` tokens live in the prefix, the newest
         # (pos - plen + 1) in the ring tail; writes touch only the tail
         plen = cache["plen"]
         tpos = torch.clamp_min(pos - plen, 0) % KV_TAIL
-        q = L.linear(params["wq"], h).reshape(B, 1, H, hd)
-        k = L.linear(params["wk"], h).reshape(B, 1, Hk, hd)
-        v = L.linear(params["wv"], h).reshape(B, 1, Hk, hd)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        S = cache["k"].shape[1]
-        kt, vt = attn.cache_update(cache["k_tail"], cache["v_tail"], k, v,
-                                   tpos)
-        # prefix: a ring of the last <= S tokens (== the window for
-        # sliding-window archs); tail: the newest tpos + 1 tokens
-        pre = attn.decode_attention_stats(q, cache["k"], cache["v"],
-                                          torch.clamp_max(plen, S))
-        tail = attn.decode_attention_stats(q, kt, vt, tpos + 1)
-        o = attn.merge_attention([pre, tail], x_t.dtype)
-        x_t = x_t + L.linear(params["wo"], o.reshape(B, 1, H * hd))
-        cache = dict(cache, k_tail=kt, v_tail=vt)
+        if cfg.mla is not None:
+            o, cache = _mla_decode(params, cfg, h, cache, positions, tpos)
+            x_t = x_t + L.linear(params["wo"], o.reshape(B, 1, -1))
+        else:
+            q = L.linear(params["wq"], h).reshape(B, 1, H, hd)
+            k = L.linear(params["wk"], h).reshape(B, 1, Hk, hd)
+            v = L.linear(params["wv"], h).reshape(B, 1, Hk, hd)
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+            S = cache["k"].shape[1]
+            kt, vt = attn.cache_update(cache["k_tail"], cache["v_tail"], k,
+                                       v, tpos)
+            # prefix: a ring of the last <= S tokens (== the window for
+            # sliding-window archs); tail: the newest tpos + 1 tokens
+            pre = attn.decode_attention_stats(q, cache["k"], cache["v"],
+                                              torch.clamp_max(plen, S))
+            tail = attn.decode_attention_stats(q, kt, vt, tpos + 1)
+            o = attn.merge_attention([pre, tail], x_t.dtype)
+            x_t = x_t + L.linear(params["wo"], o.reshape(B, 1, H * hd))
+            cache = dict(cache, k_tail=kt, v_tail=vt)
+        if kind == "xattn" and "xk" in cache:
+            hx = L.rmsnorm(params["x_norm"], x_t, cfg.norm_eps)
+            qx = L.linear(params["x_wq"], hx).reshape(B, 1, H, hd)
+            ox = attn.decode_attention(qx, cache["xk"], cache["xv"],
+                                       cache["xk"].shape[1])
+            gate = torch.tanh(params["x_gate"].float()).to(x_t.dtype)
+            x_t = x_t + gate * L.linear(params["x_wo"],
+                                        ox.reshape(B, 1, H * hd))
     elif kind == "mamba":
         x_t, cache = _mamba_decode(params, cfg, x_t, cache)
+    elif kind == "mlstm":
+        x_t, cache = _mlstm_decode(params, cfg, x_t, cache)
+    elif kind == "slstm":
+        x_t, cache = _slstm_decode(params, cfg, x_t, cache)
     else:
         raise ValueError(kind)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         x_t = _ffn(params, cfg, x_t)
     return x_t, cache
 
@@ -340,16 +585,35 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                dtype, device) -> Dict:
     hd, Hk = cfg.head_dim, cfg.n_kv_heads
     z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
-        return dict(k=z((batch, S, Hk, hd)), v=z((batch, S, Hk, hd)),
-                    k_tail=z((batch, KV_TAIL, Hk, hd)),
-                    v_tail=z((batch, KV_TAIL, Hk, hd)),
-                    plen=z((), torch.int32))
+        if cfg.mla is not None:
+            m = cfg.mla
+            c = dict(ckv=z((batch, S, m.kv_lora_rank)),
+                     krope=z((batch, S, 1, m.qk_rope_head_dim)),
+                     ckv_tail=z((batch, KV_TAIL, m.kv_lora_rank)),
+                     krope_tail=z((batch, KV_TAIL, 1, m.qk_rope_head_dim)),
+                     plen=z((), torch.int32))
+        else:
+            c = dict(k=z((batch, S, Hk, hd)), v=z((batch, S, Hk, hd)),
+                     k_tail=z((batch, KV_TAIL, Hk, hd)),
+                     v_tail=z((batch, KV_TAIL, Hk, hd)),
+                     plen=z((), torch.int32))
+        if kind == "xattn":
+            c["xk"] = z((batch, cfg.n_context_tokens, Hk, hd))
+            c["xv"] = z((batch, cfg.n_context_tokens, Hk, hd))
+        return c
     if kind == "mamba":
         mc = cfg.mamba or MambaConfig()
         di = mc.expand * cfg.d_model
         return dict(conv=z((batch, mc.d_conv - 1, di)),
                     ssm=z((batch, di, mc.d_state), torch.float32))
+    if kind == "mlstm":
+        di, dqk, H = _xlstm_dims(cfg)
+        return dict(C=z((batch, H, dqk // H, di // H), torch.float32))
+    if kind == "slstm":
+        di, _, _ = _xlstm_dims(cfg)
+        return dict(h=z((batch, di), torch.float32),
+                    c=z((batch, di), torch.float32))
     raise ValueError(kind)

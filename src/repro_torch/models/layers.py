@@ -113,3 +113,20 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32, so only the order of the sum differs from a tensor-core
     product that accumulates in float32."""
     return torch.einsum(eq, a.float(), b.float())
+
+
+def token_losses(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-token cross-entropy; logits [..., V] (any float type), labels
+    int.  As the reference: float32 logits, logsumexp minus the gold logit
+    taken as a masked reduction (iota == label), not a gather."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = labels[..., None] == torch.arange(logits.shape[-1],
+                                               device=logits.device)
+    return logz - torch.where(onehot, logits, 0.0).sum(-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy (``repro.models.layers.cross_entropy``)."""
+    return torch.mean(token_losses(logits, labels))

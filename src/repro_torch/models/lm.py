@@ -1,26 +1,28 @@
-"""Language-model assembly (port of ``repro.models.lm``) for the ported
-zoo: dense GQA models (Llama 3.1 8B, SmolLM with tied embeddings, the Qwens
-with QKV bias), prefix VLMs (SmolVLM), MoE models (Mixtral's top-2 experts
-with a sliding window, Llama 4 Maverick's top-1 with a shared expert every
-2 layers) and the Mamba/attention hybrid with MoE (Jamba v0.1).
+"""Language-model assembly (port of ``repro.models.lm``) for the whole
+zoo: dense GQA models (Llama 3.1 8B, SmolLM with tied embeddings, the
+Qwens with QKV bias), MiniCPM3's MLA, prefix VLMs (SmolVLM) and
+cross-attention VLMs (Llama 3.2 Vision), MoE models (Mixtral's top-2
+experts with a sliding window, Llama 4 Maverick's top-1 with a shared
+expert every 2 layers), the Mamba/attention hybrid with MoE (Jamba v0.1),
+the Whisper encoder-decoder and xLSTM.
 
 Depth is (n_periods x period), as in the reference: ``period`` is the
-smallest repeating block pattern (dense: 1; Jamba: 8 = 1 attn + 7 mamba),
+smallest repeating block pattern (dense: 1; Jamba: 8 = 1 attn + 7 mamba;
+Llama 3.2 Vision: 5 = 4 self + 1 cross; xLSTM: 8 = 7 mLSTM + 1 sLSTM),
 and each position-in-period's parameters are stacked over the periods.
-The reference's ``lax.scan`` over periods is a loop over the period index.
+The reference's ``lax.scan`` over periods is a loop over the period
+index.  Whisper runs an encoder over the (stub) frame embeddings and gives
+every decoder layer a cross-attention block ("xattn" kinds).
 
 Entry points:
   init_params(cfg, seed, device)                    -> params
   forward(params, cfg, tokens, ctx=None)            -> logits
+  loss_fn(params, cfg, tokens, labels, ctx=None)    -> scalar loss
   prefill(params, cfg, tokens, ctx=None)            -> (last_logits, caches)
   init_caches(cfg, batch, cache_len, device)        -> caches
   extend_caches(caches, cfg, new_len)               -> decode caches
   flush_tails(caches, cfg)                          -> caches
   decode_step(params, cfg, token, caches, pos)      -> (logits, caches)
-
-Training (``loss_fn``), MLA, cross-attention, the Whisper encoder and the
-xLSTM blocks are not ported yet; :func:`check_supported` names what a
-config would need of them.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig
@@ -40,20 +43,6 @@ def decoder_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
     if cfg.is_encdec:
         return ("xattn",) * cfg.n_layers
     return cfg.layer_kinds()
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise, naming them, if the config needs parts the port lacks."""
-    missing = sorted(set(decoder_kinds(cfg)) - {"attn", "mamba"})
-    if cfg.mla is not None:
-        missing.append("MLA")
-    if cfg.is_encdec:
-        missing.append("the Whisper encoder")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's LM has no {', '.join(missing)} yet "
-            "(ported: attention (GQA, sliding windows), Mamba, dense and "
-            "MoE FFNs)")
 
 
 def period_of(cfg: ArchConfig) -> int:
@@ -73,7 +62,6 @@ def period_of(cfg: ArchConfig) -> int:
 
 
 def _layout(cfg: ArchConfig) -> Tuple[int, int, List[Tuple[str, bool]]]:
-    check_supported(cfg)
     kinds = decoder_kinds(cfg)
     p = period_of(cfg)
     n_periods = cfg.n_layers // p
@@ -114,7 +102,26 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab, dt)
+    if cfg.is_encdec:
+        params["enc"] = dict(
+            blocks=blk.block_init(gen, cfg, "attn", False,
+                                  lead=(cfg.enc_layers,)),
+            norm=L.rmsnorm_init(cfg.d_model, dt, dev),
+            pos=L.normal(gen, (cfg.n_audio_frames, cfg.d_model), 0.02, dt))
     return params
+
+
+# ------------------------------------------------------------------ encoder
+def _encode_ctx(params: Dict, cfg: ArchConfig, ctx: torch.Tensor
+                ) -> torch.Tensor:
+    """The Whisper encoder over stub frame embeddings (bidirectional)."""
+    enc = params["enc"]
+    x = ctx + enc["pos"][None, :ctx.shape[1]]
+    for i in range(cfg.enc_layers):
+        y, _ = blk.block_apply(_period(enc["blocks"], i), cfg, "attn", False,
+                               x, causal=False)
+        x = y.to(x.dtype)
+    return L.rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
 def _embed_inputs(params, cfg, tokens, ctx):
@@ -126,21 +133,30 @@ def _embed_inputs(params, cfg, tokens, ctx):
     return x
 
 
+def _head_w(params, cfg) -> torch.Tensor:
+    return params["embed"]["w"].T if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+
+
 def _head(params, cfg, x):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["w"].T
+        return x @ _head_w(params, cfg)
     return L.linear(params["lm_head"], x)
 
 
 # ------------------------------------------------------------------ forward
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             ctx: Optional[torch.Tensor] = None, *,
-            collect_caches: bool = False):
+            collect_caches: bool = False, return_hidden: bool = False):
     """tokens [B,S] -> logits [B,S,V] (+ caches stacked over periods when
-    collecting)."""
+    collecting); ``return_hidden``: the final-normed hidden states
+    [B,S,d] in place of the logits."""
     _, n_periods, slots = _layout(cfg)
     dt = L.dtype_of(cfg.param_dtype)
+    if cfg.is_encdec:
+        assert ctx is not None, "enc-dec needs frame embeddings"
+        ctx = _encode_ctx(params, cfg, ctx)
     x = _embed_inputs(params, cfg, tokens, ctx)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -149,17 +165,48 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         caches = {}
         for j, (kind, moe_on) in enumerate(slots):
             x, c = blk.block_apply(_period(params["blocks"][f"p{j}"], i), cfg,
-                                   kind, moe_on, x, positions=positions,
+                                   kind, moe_on, x, ctx=ctx,
+                                   positions=positions,
                                    collect_cache=collect_caches)
             caches[f"p{j}"] = c
         x = x.to(dt)
         per_period.append(caches)
-    logits = _head(params, cfg, x)
+    if return_hidden:
+        out = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    else:
+        out = _head(params, cfg, x)
     if not collect_caches:
-        return logits
+        return out
     caches = {pj: {k: torch.stack([c[pj][k] for c in per_period])
                    for k in per_period[0][pj]} for pj in per_period[0]}
-    return logits, caches
+    return out, caches
+
+
+def _chunk_ce_sum(x: torch.Tensor, labels: torch.Tensor,
+                  head_w: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one sequence chunk."""
+    return torch.sum(L.token_losses(x @ head_w, labels))
+
+
+def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, ctx: Optional[torch.Tensor] = None,
+            ce_chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy.  Above ``ce_chunk`` tokens (S a multiple
+    of it) the head product and the softmax run chunk by chunk, each chunk
+    recomputed in the backward (``torch.utils.checkpoint``, the reference's
+    remat'd ``lax.map``), so one [B, chunk, V] block of logits is live at a
+    time; the chunk sums over B * S."""
+    B, S = tokens.shape
+    x = forward(params, cfg, tokens, ctx, return_hidden=True)
+    head_w = _head_w(params, cfg)
+    if S % ce_chunk or S <= ce_chunk:
+        return L.cross_entropy(x @ head_w, labels)
+    total = 0.0
+    for i in range(S // ce_chunk):
+        sl = slice(i * ce_chunk, (i + 1) * ce_chunk)
+        total = total + checkpoint(_chunk_ce_sum, x[:, sl], labels[:, sl],
+                                   head_w, use_reentrant=False)
+    return total / (B * S)
 
 
 def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -182,23 +229,26 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
             for j, (kind, _) in enumerate(slots)}
 
 
-_SEQ_CACHE_KEYS = ("k", "v")
+_SEQ_CACHE_KEYS = ("k", "v", "ckv", "krope")
 
 
 def extend_caches(caches: Dict, cfg: ArchConfig, new_len: int) -> Dict:
-    """Prepare prefill caches for decoding: pad the sequence-indexed prefix
-    to ``new_len`` (for sliding-window archs keep the last W), attach empty
-    ring tails and set plen to the prompt length (the two-tier decode
-    cache of ``repro_torch.models.blocks``).  Leaves are [n_periods, B, S,
-    ...]: the sequence axis is 2."""
+    """Prepare prefill caches for decoding: pad each sequence-indexed
+    prefix (``k``/``v``, MLA's ``ckv``/``krope``) to ``new_len`` (for
+    sliding-window archs keep the last W), attach empty ring tails and set
+    plen to the prompt length (the two-tier decode cache of
+    ``repro_torch.models.blocks``).  Cross-attention's ``xk``/``xv`` pass
+    as they are.  Leaves are [n_periods, B, S, ...]: the sequence axis is
+    2."""
     out = {}
     for pj, c in caches.items():
         nc = dict(c)
-        if "k" in c:   # an attention cache: pad, add tails and plen
-            prompt_len = c["k"].shape[2]
+        seq = [name for name in _SEQ_CACHE_KEYS if name in c]
+        if seq:   # an attention cache: pad, add tails and plen
+            prompt_len = c[seq[0]].shape[2]
             cap = min(new_len, cfg.sliding_window) if cfg.sliding_window \
                 else new_len
-            for name in _SEQ_CACHE_KEYS:
+            for name in seq:
                 arr = c[name]
                 pad = cap - arr.shape[2]
                 if pad > 0:
@@ -209,8 +259,9 @@ def extend_caches(caches: Dict, cfg: ArchConfig, new_len: int) -> Dict:
                 nc[name] = arr
                 nc[name + "_tail"] = arr.new_zeros(
                     arr.shape[:2] + (blk.KV_TAIL,) + arr.shape[3:])
-            nc["plen"] = torch.full((c["k"].shape[0],), prompt_len,
-                                    dtype=torch.int32, device=c["k"].device)
+            nc["plen"] = torch.full((c[seq[0]].shape[0],), prompt_len,
+                                    dtype=torch.int32,
+                                    device=c[seq[0]].device)
         out[pj] = nc
     return out
 
@@ -227,7 +278,7 @@ def flush_tails(caches: Dict, cfg: ArchConfig) -> Dict:
             out[pj] = c
             continue
         nc = dict(c)
-        for name in _SEQ_CACHE_KEYS:
+        for name in (n for n in _SEQ_CACHE_KEYS if n in c):
             pre, tail = c[name], c[name + "_tail"]
             S, n = pre.shape[2], tail.shape[2]
             start = torch.clamp(c["plen"].long() % S, 0, S - n)   # [n_per]
@@ -241,10 +292,12 @@ def flush_tails(caches: Dict, cfg: ArchConfig) -> Dict:
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
-                caches: Dict, pos: int):
+                caches: Dict, pos: int, ctx: Optional[torch.Tensor] = None):
     """token [B,1] int; caches from :func:`extend_caches` (or
     :func:`init_caches`); pos = the current length.  Returns (logits
-    [B,1,V], new caches); the given caches are not modified."""
+    [B,1,V], new caches); the given caches are not modified.  ``ctx`` is
+    not read: cross-attention's keys and values (the vision context or the
+    encoder's memory) were cached at prefill, as in the reference."""
     _, n_periods, slots = _layout(cfg)
     dt = L.dtype_of(cfg.param_dtype)
     x = L.embed(params["embed"], token)

@@ -1,9 +1,13 @@
-"""Functional Adam on dicts of tensors (port of ``repro.optim.adam``).
+"""Functional Adam(W) on dicts of tensors (port of ``repro.optim.adam``).
 
 Same update as the reference, op for op: optional global-norm gradient
-clip ``min(1, clip / sqrt(sum g^2 + 1e-12))``, then the moment updates and
-float32 bias corrections ``1 - b**t``.  (``torch.optim.Adam`` differs: it
-has no global clip and folds the bias corrections into the step size.)
+clip ``min(1, clip / sqrt(sum g^2 + 1e-12))``, then the moment updates,
+float32 bias corrections ``1 - b**t``, decoupled weight decay
+``lr * wd * p`` added to the step, and each new parameter cast back to its
+own type (a bf16 parameter stays bf16; the moments of a state made by
+``repro_torch.optim.trainer.create_state`` are float32 whatever the
+parameters' type).  (``torch.optim.Adam`` differs: it has no global clip
+and folds the bias corrections into the step size.)
 """
 from __future__ import annotations
 
@@ -39,27 +43,48 @@ def adam_init(params: Any) -> AdamState:
 
 
 @torch.no_grad()
-def adam_update(params: Any, grads: Any, state: AdamState, *, lr: float,
+def adam_update(params: Any, grads: Any, state: AdamState, *, lr,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                grad_clip: float = 0.0):
-    """One Adam step; returns (new_params, new_state).  Pure: nothing is
-    updated in place."""
+                weight_decay: float = 0.0, grad_clip: float = 0.0,
+                inplace: bool = False):
+    """One Adam(W) step; returns (new_params, new_state).  ``lr`` is a float
+    or a float32 scalar tensor (a schedule's).  Pure unless ``inplace``:
+    then each parameter and moment is overwritten with its new value, leaf
+    by leaf (the same numbers; the LM trainer's way to hold one copy of a
+    multi-GB state)."""
+    scale = None
     if grad_clip and grad_clip > 0.0:
         gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
                                for g in tree_leaves(grads)) + 1e-12)
         scale = torch.clamp_max(grad_clip / gnorm, 1.0)
-        grads = tree_map(lambda g: g * scale, grads)
     t = state.t + 1
-    m = tree_map(lambda mu, g: b1 * mu + (1 - b1) * g, state.m, grads)
-    v = tree_map(lambda nu, g: b2 * nu + (1 - b2) * torch.square(g),
-                 state.v, grads)
     tf = t.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                        device=tf.device), tf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=tf.device), tf)
 
-    def upd(p, mu, nu):
-        return p - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+    def upd(p, g, mu, nu):
+        if scale is not None:
+            # the scale is a float32 array in the reference, so a
+            # half-precision gradient comes out of the product in float32
+            g = (g if g.dtype == torch.float32 else g.float()) * scale
+        # (1 - b) * g in g's type with (1 - b) rounded to it first, as JAX
+        # takes a Python scalar (weakly typed) beside a bf16 array
+        c1, c2 = (torch.tensor(1 - b, dtype=g.dtype, device=g.device)
+                  for b in (b1, b2))
+        if inplace:
+            mu = mu.mul_(b1).add_(c1 * g)
+            nu = nu.mul_(b2).add_(c2 * torch.square(g))
+        else:
+            mu = b1 * mu + c1 * g
+            nu = b2 * nu + c2 * torch.square(g)
+        step = lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        if weight_decay:
+            step = step + lr * weight_decay * p.to(step.dtype)
+        new = (p.to(step.dtype) - step).to(p.dtype)
+        return (p.copy_(new) if inplace else new), mu, nu
 
-    return tree_map(upd, params, m, v), AdamState(m=m, v=v, t=t)
+    out = tree_map(upd, params, grads, state.m, state.v)
+    pick = lambda i: tree_map(lambda o: o[i], out)
+    return pick(0), AdamState(m=pick(1), v=pick(2), t=t)

@@ -10,7 +10,9 @@ generation on the card against the same on the CPU, ``devices=1``
 bitwise ``devices=None``, a W=2 fleet of two processes on the card
 fingerprinting as the W=1 campaign, ``fused_mlp`` at the index
 surrogate's serving widths and the recommender on the card against the
-CPU.
+CPU, and the two backward kernels (``flash_attention_backward``,
+``ssm_scan_backward``) against autograd over the plain versions, bitwise
+repeatable, with the autograd Functions running both kernels.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -931,3 +933,151 @@ def test_fleet_w2_on_card_fingerprints_as_w1(dev, tmp_path):
         for name in ("actor_moe", "sumtree", "sumtree_sample"):
             assert snapshot_value(snap, "counters", "kernel_launches_total",
                                   {"kernel": name}) > 0, (i, name)
+
+
+# ---- the backward kernels (LM training) -------------------------------------
+def _rel_err(got, want):
+    """max |got - want| over max |want| (the bf16/fp16 measure)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+BWD_CASES = [(2, 4, 2, 130, 130, 64, True, 0),     # GQA, ragged tiles
+             (1, 4, 4, 77, 131, 64, False, 0),     # non-causal, Sq != Sk
+             (1, 4, 2, 77, 131, 64, True, 0),      # causal, Sq < Sk
+             (1, 4, 2, 200, 200, 64, True, 70),    # window
+             (1, 4, 2, 200, 100, 80, True, 70),    # rows that see no key
+             (1, 4, 2, 40, 9, 32, False, 4),       # ... and non-causal
+             (1, 4, 4, 100, 100, 96, True, 0),     # MLA's width
+             (1, 2, 1, 70, 300, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd,causal,window", BWD_CASES)
+def test_flash_attention_backward_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
+                                                causal, window, dtype):
+    g = _gen(dev, Sq + Sk + hd)
+    q = torch.randn((B, H, Sq, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Hk, Sk, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hk, Sk, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, H, Sq, hd), generator=g, device=dev).to(dtype)
+    o, lse = flash_attention._forward_cuda(q, k, v, causal, window, True)
+    want_o = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window)
+    assert _rel_err(o, want_o) < (2e-5 if dtype == torch.float32 else 2e-2)
+    before = flash_attention.backward_launches
+    got = flash_attention.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launches == before + 2
+    want = flash_attention.flash_attention_backward_plain(
+        q, k, v, do, causal=causal, window=window)
+    for name, a_, b_, w_ in zip("qkv", got, again, want):
+        assert a_.dtype == dtype and a_.shape == w_.shape, name
+        assert torch.equal(a_, b_), name                   # repeatable bits
+        if dtype == torch.float32:
+            torch.testing.assert_close(a_, w_, rtol=1e-4, atol=1e-5)
+        else:
+            assert _rel_err(a_, w_) < 2e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_runs_both_kernels(dev, dtype):
+    """On CUDA tensors that need a gradient, ``flash_attention`` is the
+    autograd Function: one forward and one backward launch, the gradients
+    of transposed views (the model's layout) those of the plain version."""
+    g = _gen(dev, 7)
+    base = [torch.randn((2, 96, n, 64), generator=g, device=dev).to(dtype)
+            for n in (8, 2, 2)]
+    leaves = [t.requires_grad_(True) for t in base]
+    ops.reset_launch_counts()
+    o = flash_attention.flash_attention(*(t.transpose(1, 2) for t in leaves),
+                                        window=40)
+    o.float().square().sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_backward"] == 1
+    plain = [t.detach().clone().requires_grad_(True) for t in base]
+    o2 = flash_attention.flash_attention_plain(
+        *(t.transpose(1, 2) for t in plain), window=40)
+    o2.float().square().sum().backward()
+    for a_, b_ in zip(leaves, plain):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a_.grad, b_.grad, rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            assert _rel_err(a_.grad, b_.grad) < 2e-2
+
+
+def _ssm_inputs(dev, B, S, D, N, seed):
+    g = _gen(dev, seed)
+    return (torch.rand((B, S, D), generator=g, device=dev) * 0.1 + 1e-3,
+            torch.randn((B, S, N), generator=g, device=dev),
+            torch.randn((B, S, N), generator=g, device=dev),
+            torch.randn((B, S, D), generator=g, device=dev),
+            -torch.exp(0.5 * torch.randn((D, N), generator=g, device=dev)))
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 300, 200, 16), (1, 128, 64, 8),
+                                     (2, 33, 130, 13), (1, 1, 8, 5)])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_backward_matches_plain(dev, B, S, D, N, with_dh, with_h0):
+    ins = _ssm_inputs(dev, B, S, D, N, S + D)
+    g = _gen(dev, 11)
+    h0 = torch.randn((B, D, N), generator=g, device=dev) if with_h0 else None
+    dy = torch.randn((B, S, D), generator=g, device=dev)
+    dh = torch.randn((B, D, N), generator=g, device=dev) if with_dh else None
+    y, h_final, h_chunks = ssm_scan._forward_cuda(*ins, h0, True)
+    want_y, want_h = ssm_scan.ssm_scan_plain(*ins, h0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_final, want_h, rtol=1e-4, atol=1e-4)
+    got = ssm_scan.ssm_scan_backward_cuda(*ins, h_chunks, dy, dh, with_h0)
+    again = ssm_scan.ssm_scan_backward_cuda(*ins, h_chunks, dy, dh, with_h0)
+    torch.cuda.synchronize()
+    want = ssm_scan.ssm_scan_backward_plain(*ins, h0, dy, dh)
+    exact = ssm_scan.ssm_scan_backward_plain(
+        *(None if t is None else t.double() for t in (*ins, h0, dy, dh)))
+    for name, a_, b_, w_, x_ in zip(("dt", "B", "C", "x", "A", "h0"), got,
+                                    again, want, exact):
+        if w_ is None:
+            assert a_ is None, name
+            continue
+        assert torch.equal(a_, b_), name                   # repeatable bits
+        _hold_fp32_gradient(a_, w_, x_, name)
+
+
+def _hold_fp32_gradient(got, plain, exact, name):
+    """A float32 gradient of the scan against the plain version's: rtol
+    1e-4 and atol 1e-5 of the largest magnitude (chained over hundreds of
+    steps, the terms reach 10^2 and entries near 0 come from cancelling
+    them, where the two float32 computations differ by their rounding);
+    and within 1e-5 of the largest magnitude from the plain version run in
+    float64."""
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5 * scale,
+                               msg=name)
+    err_kernel = float((got.double() - exact).abs().max())
+    assert err_kernel <= 1e-5 * scale, (name, err_kernel, scale)
+
+
+def test_ssm_scan_autograd_runs_both_kernels(dev):
+    ins = [t.requires_grad_(True) for t in _ssm_inputs(dev, 2, 260, 96, 16,
+                                                        3)]
+    ops.reset_launch_counts()
+    y, _ = ssm_scan.ssm_scan(*ins)
+    y.square().sum().backward()
+    counts = ops.launch_counts()
+    assert counts["ssm_scan"] == 1 and counts["ssm_scan_backward"] == 1
+    plain = [t.detach().clone().requires_grad_(True) for t in ins]
+    y2, _ = ssm_scan.ssm_scan_plain(*plain)
+    y2.square().sum().backward()
+    exact = [t.detach().double().requires_grad_(True) for t in ins]
+    y3, _ = ssm_scan.ssm_scan_plain(*exact)
+    y3.square().sum().backward()
+    for name, a_, b_, c_ in zip(("dt", "B", "C", "x", "A"), ins, plain,
+                                exact):
+        _hold_fp32_gradient(a_.grad, b_.grad, c_.grad, name)

@@ -118,7 +118,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops.launch_counts() == {"actor_moe": 0, "screen_score": 0,
                                    "sumtree": 0, "sumtree_sample": 0,
                                    "fused_mlp": 0, "flash_attention": 0,
-                                   "ssm_scan": 0}
+                                   "flash_attention_backward": 0,
+                                   "ssm_scan": 0, "ssm_scan_backward": 0}
 
 
 def _mlp_weights(d_out, rng=RNG):

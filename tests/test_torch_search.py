@@ -91,7 +91,8 @@ def test_cpu_run_launches_no_kernel():
     assert ops.launch_counts() == {"actor_moe": 0, "screen_score": 0,
                                    "sumtree": 0, "sumtree_sample": 0,
                                    "fused_mlp": 0, "flash_attention": 0,
-                                   "ssm_scan": 0}
+                                   "flash_attention_backward": 0,
+                                   "ssm_scan": 0, "ssm_scan_backward": 0}
 
 
 def test_cli_writes_the_four_artifacts(tmp_path, capsys):
