@@ -155,15 +155,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      Jamba's attention layer, the Whisper encoder (non-causal, 1,500),
      MiniCPM3's MLA width (hd 96), a ragged GQA case (Sq 77, Sk 131) and a
      window, each in fp32 (rtol 1e-4, atol 1e-5) and bf16 (2e-2 of the
-     largest gradient), two calls bitwise equal; ``ssm_scan_backward`` at
+     largest gradient), two calls bitwise equal; a reading of the loss
+     sum(o^2) through both kernels' autograd Function against the plain
+     version's over 8 seeds (dP and D ~100, nearly cancelling);
+     ``ssm_scan_backward`` at
      Jamba's [2,512,8192] x 16 and a ragged shape, with and without the
      final state's gradient (rtol 1e-4, atol 1e-5 of the largest gradient,
      and within 1e-5 of it from a float64 plain run, beside which the
-     float32 plain run's own gap is printed), bitwise repeatable; both timed beside their bounds, the plain
-     versions' autograd and (attention) SDPA's backward; (b) SmolLM-135M
+     float32 plain run's own gap is printed), bitwise repeatable; both
+     timed beside their bounds, the plain versions' autograd and
+     (attention, in bf16, fp16 and fp32 at SmolLM's shape and bf16 at
+     Jamba's, with each of its three launches' device time) SDPA's
+     backward; (b) SmolLM-135M
      at full width through ``repro_torch.launch.train`` (bf16, B = 8, S =
      1,024, ``TRAIN_STEPS`` steps): the loss falls, steps/s, tokens/s and
-     the attention launches; kill/resume over 6 steps (3, a stop, 3
+     the attention launches; one more step under ``torch.profiler``: the
+     top device ops, the attention backward's share of device time and the
+     device idle share; kill/resume over 6 steps (3, a stop, 3
      resumed) within rtol 1e-6 of a straight run, bitwise or not printed;
      (c) Jamba at full width with 2 layers (attention + dense FFN, Mamba +
      16-expert MoE; 3.7 B parameters), 5 steps of 2 x 512, both scan
@@ -1248,6 +1256,113 @@ def ssm_bwd_work(B, S, D, N) -> tuple:
             float(B * S * D * N))
 
 
+# the backward kernels' names in a profile (csrc/flash_attention_backward.cu)
+ATTN_BWD_KERNELS = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
+
+
+def dev_time(e) -> float:
+    """A profiler event's self device time (µs), under either name torch
+    gives it."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_split(fn, calls: int = 10) -> str:
+    """The device time a call of each of ``flash_attention_backward``'s
+    three launches, over ``calls`` calls of ``fn`` (``torch.profiler``;
+    "not measured" if the profile holds no device time for them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    us = {n: sum(dev_time(e) for e in events if n in e.key) / calls
+          for n in ATTN_BWD_KERNELS}
+    if not sum(us.values()):
+        return "per-launch split not measured (no device time profiled)"
+    return "per call " + ", ".join(f"{n} {v / 1e3:.5f} ms"
+                                   for n, v in us.items())
+
+
+def cancelling_cotangent(dev, seeds: int = 8) -> None:
+    """Print how close the backward comes to the plain version's autograd
+    under the loss sum(o^2) (dO = 2 o: dP and D ~100 and nearly cancelling
+    in dS; at a row with one visible key the plain softmax backward cancels
+    exactly, D = rowsum(dO o) to an ulp of dP): through ``flash_attention``'s
+    autograd Function against the plain version's, q [2,8,96,64], k/v 2
+    heads, causal, window 40, over ``seeds`` seeds; fp32 as the worst
+    |err| / (1e-5 + 1e-4 |want|), bf16 as err / max |grad|.  A reading:
+    the card tests hold one such seed."""
+    from repro_torch.kernels import flash_attention as fa
+    for dt in (torch.float32, torch.bfloat16):
+        worst = []
+        for seed in range(seeds):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            base = [torch.randn((2, 96, n, 64), generator=g,
+                                device=dev).to(dt) for n in (8, 2, 2)]
+            grads = []
+            for fn in (fa.flash_attention, fa.flash_attention_plain):
+                leaves = [t.clone().requires_grad_(True) for t in base]
+                o = fn(*(t.transpose(1, 2) for t in leaves), window=40)
+                o.float().square().sum().backward()
+                grads.append([t.grad.float() for t in leaves])
+            worst.append(max(
+                float(((a_ - w_).abs() / (ATOL + RTOL * w_.abs())).max())
+                if dt == torch.float32 else
+                float((a_ - w_).abs().max() / w_.abs().max())
+                for a_, w_ in zip(*grads)))
+        log(f"reading flash_attention_backward, loss sum(o^2) (dP and D "
+            f"cancel), {str(dt)[6:]}: per seed worst "
+            + ("|err| / (1e-5 + 1e-4 |want|) " if dt == torch.float32
+               else "err / max |grad| ")
+            + " ".join(f"{w_:.4f}" for w_ in worst))
+
+
+def profile_train_step(state, steps: int) -> None:
+    """Profile SmolLM-135M's next step (``steps``, its batch from the data
+    pipeline) after the timed run, from ``state``: the device ops by time,
+    the attention backward's share of device time, the device idle share
+    (1 - device busy / the step's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.optim import trainer
+    cfg = get_config("smollm-135m")
+    step_fn = trainer.make_train_step(cfg, trainer.TrainConfig(
+        lr=3e-4, warmup_steps=max(10, steps // 10), total_steps=steps))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                    seed=0)
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in batch_at(dc, steps).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        _, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_time(e) > 0]
+    busy = sum(dev_time(e) for e in events) / 1e3
+    attn = sum(dev_time(e) for e in events
+               if any(n in e.key for n in ATTN_BWD_KERNELS)) / 1e3
+    if not (np.isfinite(float(met["loss"])) and busy > 0):
+        fail("profile of a train step: no device time or a bad loss")
+    log(f"profile train step smollm-135m (step {steps}): wall "
+        f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / (1e3 * wall):.4f}; attention backward {attn:.3f} ms "
+        f"({attn / busy:.4f} of device time); "
+        f"{sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=dev_time, reverse=True)[:15]:
+        log(f"profile train step:   {dev_time(e) / 1e3:10.3f} ms  "
+            f"x{e.count:<6d} {e.key[:90]}")
+
+
 def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
                     zoo_runs=ZOO_RUNS) -> tuple:
     """Phase 13 (see the module docstring) on the card.  Returns the
@@ -1310,6 +1425,7 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
                 f"{str(dt)[6:]}: max {'abs' if dt == torch.float32 else 'rel'}"
                 f" err {worst:.3e}, two calls bitwise equal")
             del q, k, v, do, o, lse, got, again, want
+    cancelling_cotangent(dev)
     for B, S, D, N in BWD_SSM_CASES:
         ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
                torch.randn((B, S, N), generator=gen, device=dev),
@@ -1350,6 +1466,8 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
     # timing at the training shapes: the kernel (CUDA graph), the plain
     # version's autograd and SDPA's backward (eager, CUDA events)
     for label, case, dt in (("smollm", BWD_ATTN_CASES[0], torch.bfloat16),
+                            ("smollm_fp16", BWD_ATTN_CASES[0],
+                             torch.float16),
                             ("jamba", BWD_ATTN_CASES[1], torch.bfloat16),
                             ("smollm_fp32", BWD_ATTN_CASES[0],
                              torch.float32)):
@@ -1370,16 +1488,20 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
         call = call_ms(kern, n=20, warm=3)
         plain_ms = call_ms(plain, n=5, warm=1)
         library_ms = call_ms(lib, n=20, warm=3)
-        bnd, by, term = bound_ms(*attention_bwd_work(*case, q.element_size()),
-                                 unit="fp32" if dt == torch.float32
+        work = attention_bwd_work(*case, q.element_size())
+        # fp32 runs 3xTF32 on the tensor cores: its bound beside the
+        # fp32-FMA one
+        bnd, by, term = bound_ms(*work, unit="tf32x3" if dt == torch.float32
                                  else "half")
+        fma = "" if dt != torch.float32 else \
+            f" (fp32 FMA: {1e6 * work[0] / PEAK_FP32_FLOPS:.4f})"
         timings[("flash_attention_backward", label)] = (
             ms, plain_ms, bnd, by, term, call, library_ms)
         log(f"time flash_attention_backward {label} q [{B},{H},{Sq},{hd}] "
             f"k/v [{B},{Hk},{Sk},{hd}] {str(dt)[6:]} causal: ms {ms:.5f} "
-            f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f} bound_by {by}"
-            f" ({term}) library_ms (SDPA backward) {library_ms:.5f} | eager "
-            f"call_ms {call:.5f}")
+            f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f}{fma} bound_by"
+            f" {by} ({term}) library_ms (SDPA backward) {library_ms:.5f} | "
+            f"eager call_ms {call:.5f} | {kernel_split(kern)}")
         del q, k, v, do, o, lse, leaves, out
     B, S, D, N = BWD_SSM_CASES[0]
     ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
@@ -1411,9 +1533,10 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.time()
-    _, losses = train_mod.train("smollm-135m", reduced=False, steps=steps,
-                                global_batch=TRAIN_B, seq_len=TRAIN_S,
-                                log_every=10, device="cuda")
+    state, losses = train_mod.train("smollm-135m", reduced=False,
+                                    steps=steps, global_batch=TRAIN_B,
+                                    seq_len=TRAIN_S, log_every=10,
+                                    device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     train_counts = dict(ops.launch_counts())
@@ -1433,6 +1556,8 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
         if train_counts[name] != steps * n_layers:
             fail(f"train smollm-135m: {name} launched {train_counts[name]} "
                  f"times, not {steps * n_layers}")
+    profile_train_step(state, steps)
+    del state
     # kill/resume: 6 steps straight against 3, a stop, and 3 resumed
     ops.reset_launch_counts()
     kw = dict(reduced=False, steps=6, global_batch=TRAIN_B,
@@ -2208,8 +2333,6 @@ def main() -> None:
     # learning on from the 5th dispatch and the gate open from the 6th
     from torch.profiler import ProfilerActivity, profile
     n_disp = 12
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
 
     def profiled(label, search):
         with profile(activities=[ProfilerActivity.CPU,

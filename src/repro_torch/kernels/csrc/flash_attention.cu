@@ -80,11 +80,7 @@
 // TF32 products: 52 us at the tensor cores' dense 494.7 TFLOP/s (a rate
 // only wgmma reaches; this kernel runs mma.sync), against 25 us for its
 // 84 MB.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_mma.cuh"
 
 #ifndef FLASH_TC_WARPS
 #define FLASH_TC_WARPS 4   // warps of the fp16/bf16 kernel: BQ = 16 x this
@@ -94,45 +90,6 @@ namespace {
 
 constexpr int HD_MAX = 128;
 constexpr float MASKED = -1e30f;    // the Pallas kernel's NEG_INF
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// the key tiles some query row in [q0, q_last] can see, [*k_begin, *k_end):
-// causal, none past the last row; window, none before the first row's
-// window.  A row whose keys are all masked (only with a window and Sq > Sk)
-// sees every key, at -1e30.
-__device__ __forceinline__ void key_range(int q0, int q_last, int Sk,
-                                          int causal, int window, int bk,
-                                          int* k_begin, int* k_end) {
-  *k_end = causal ? min(Sk, q_last + 1) : Sk;
-  *k_begin = 0;
-  if (window > 0 && q_last < Sk + window - 1)
-    *k_begin = max(0, q0 - window + 1) / bk * bk;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the SFU, denormal results flushed to 0 (what exp2f compiles to
-// under --use_fast_math)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // A warp's S tile (rows wq0 + g and wq0 + g + 8, keys kt + 8 n + 2 t and
 // + 1: the m16n8 accumulator layout) to scores in base 2: scaled by sl2 =
@@ -233,33 +190,6 @@ template <int HDP> struct Layout {
   static constexpr int ST = KT + BK * LV;
   static constexpr int FLOATS = STAGES * ST + BQ * LQK;
 };
-
-// a = hi + lo: hi = a with the 13 bits TF32 drops cleared, lo = a - hi
-// (exact), passed as it is: the mma reads a TF32 operand's top 19 bits, so
-// lo is truncated to TF32 there, an error of at most 2^-20 |a|
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(a) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
-// d += a b on the tensor cores: a 16x8 (row), b 8x8 (col), TF32 in, fp32 d
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32: the small products first, then hi.hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
-}
 
 // rows [row0, row0 + ROWS) of a [S, hd] fp32 matrix (row stride `stride`
 // floats) into shared memory [ROWS][LD], zero past S and past hd up to
@@ -529,59 +459,6 @@ constexpr int PAD = 8;              // elements (16 bytes) after each row
 
 template <int HDP> size_t smem_bytes() {
   return sizeof(uint16_t) * (size_t)(2 * STAGES * BK + BQ) * (HDP + PAD);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a b on the tensor cores: a 16x16 (row), b 16x8 (col), d 16x8 fp32
-template <typename T>
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma<__half>(float (&d)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma<__nv_bfloat16>(float (&d)[4],
-                                                   const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to T, the first in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float, float);
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float a,
-                                                              float b) {
-  __half2 h = __floats2half2_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // rows [row0, row0 + ROWS) of a [S, hd] matrix (row stride `stride`

@@ -17,8 +17,9 @@ prefill runs every attention layer through it
 Training runs it too: on a CUDA tensor that needs a gradient,
 :func:`flash_attention` is a ``torch.autograd.Function`` whose forward is
 the kernel with its base-2 log-sum-exp output and whose backward is the
-kernel of ``csrc/flash_attention_backward.cu`` (dq, dk, dv in float32
-arithmetic, no atomics: repeatable bits).  The JAX package has no backward
+kernel of ``csrc/flash_attention_backward.cu`` (dq, dk, dv on the same
+tensor cores: fp16/bf16 products with fp32 sums, fp32 as 3xTF32; no
+atomics: repeatable bits).  The JAX package has no backward
 kernel; XLA differentiates its jnp attention, and
 :func:`flash_attention_backward_plain` (autograd over the plain version)
 is what the backward kernel is held against.

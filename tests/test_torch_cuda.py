@@ -949,7 +949,12 @@ BWD_CASES = [(2, 4, 2, 130, 130, 64, True, 0),     # GQA, ragged tiles
              (1, 4, 2, 200, 100, 80, True, 70),    # rows that see no key
              (1, 4, 2, 40, 9, 32, False, 4),       # ... and non-causal
              (1, 4, 4, 100, 100, 96, True, 0),     # MLA's width
-             (1, 2, 1, 70, 300, 128, True, 0)]
+             (1, 2, 1, 70, 300, 128, True, 0),
+             (2, 9, 3, 200, 200, 64, True, 0),     # SmolLM's group of 3
+             (1, 4, 2, 150, 170, 128, True, 0),    # hd 128, ragged tiles
+             (1, 4, 2, 190, 100, 128, False, 0),   # ... and non-causal
+             (1, 16, 16, 1500, 1500, 64, False, 0),   # Whisper's encoder
+             (1, 4, 4, 64, 1500, 64, False, 0)]    # ... its cross keys
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
@@ -978,6 +983,37 @@ def test_flash_attention_backward_matches_plain(dev, B, H, Hk, Sq, Sk, hd,
     for name, a_, b_, w_ in zip("qkv", got, again, want):
         assert a_.dtype == dtype and a_.shape == w_.shape, name
         assert torch.equal(a_, b_), name                   # repeatable bits
+        if dtype == torch.float32:
+            torch.testing.assert_close(a_, w_, rtol=1e-4, atol=1e-5)
+        else:
+            assert _rel_err(a_, w_) < 2e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hk,Sq,Sk,hd,causal,window", [
+    (2, 9, 3, 130, 130, 64, True, 0), (1, 4, 2, 77, 131, 128, True, 0),
+    (1, 4, 2, 200, 100, 80, True, 70), (1, 4, 4, 100, 100, 96, False, 0)])
+def test_flash_attention_backward_transposed_views(dev, B, H, Hk, Sq, Sk, hd,
+                                                   causal, window, dtype):
+    """q, k, v and dO as transposed [B,S,H,hd] views (the model's layout,
+    ``models/attention.py``): the gradients those of the plain version, in
+    the views' layouts, two calls bitwise equal."""
+    g = _gen(dev, 3 * Sq + hd)
+    q, k, v, do = (torch.randn((B, s, h, hd), generator=g,
+                               device=dev).to(dtype).transpose(1, 2)
+                   for s, h in ((Sq, H), (Sk, Hk), (Sk, Hk), (Sq, H)))
+    o, lse = flash_attention._forward_cuda(q, k, v, causal, window, True)
+    got = flash_attention.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    again = flash_attention.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_backward_plain(
+        q, k, v, do, causal=causal, window=window)
+    for name, a_, b_, w_, x_ in zip("qkv", got, again, want, (q, k, v)):
+        assert a_.stride() == x_.stride(), name
+        assert torch.equal(a_, b_), name
         if dtype == torch.float32:
             torch.testing.assert_close(a_, w_, rtol=1e-4, atol=1e-5)
         else:
