@@ -159,14 +159,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      sum(o^2) through both kernels' autograd Function against the plain
      version's over 8 seeds (dP and D ~100, nearly cancelling);
      ``ssm_scan_backward`` at
-     Jamba's [2,512,8192] x 16 and a ragged shape, with and without the
+     Jamba's [2,512,8192] x 16, a ragged shape and Jamba's width at S =
+     257 (past the second 128-step chunk's edge), with and without the
      final state's gradient (rtol 1e-4, atol 1e-5 of the largest gradient,
      and within 1e-5 of it from a float64 plain run, beside which the
      float32 plain run's own gap is printed), bitwise repeatable; both
-     timed beside their bounds, the plain versions' autograd and
-     (attention, in bf16, fp16 and fp32 at SmolLM's shape and bf16 at
-     Jamba's, with each of its three launches' device time) SDPA's
-     backward; (b) SmolLM-135M
+     timed beside their bounds and the plain versions' autograd, each
+     launch's device time beside the call (the scan's two, the
+     attention's three), and (attention, in bf16, fp16 and fp32 at
+     SmolLM's shape and bf16 at Jamba's) SDPA's backward; (b) SmolLM-135M
      at full width through ``repro_torch.launch.train`` (bf16, B = 8, S =
      1,024, ``TRAIN_STEPS`` steps): the loss falls, steps/s, tokens/s and
      the attention launches; one more step under ``torch.profiler``: the
@@ -1219,7 +1220,7 @@ BWD_ATTN_CASES = [(8, 9, 3, 1024, 1024, 64, True, 0),
                   (2, 40, 40, 512, 512, 96, True, 0),
                   (1, 4, 2, 77, 131, 64, True, 0),
                   (1, 4, 2, 300, 300, 64, True, 128)]
-BWD_SSM_CASES = [(2, 512, 8192, 16), (2, 300, 200, 13)]
+BWD_SSM_CASES = [(2, 512, 8192, 16), (2, 300, 200, 13), (2, 257, 8192, 16)]
 # (b) SmolLM-135M at full width: 100 steps of B = 8 x S = 1,024 (the loss
 # runs in 2 chunks of 512), then kill/resume over 6 steps; (c) Jamba at
 # full width with 2 layers, 5 steps of 2 x 512; (e) serving the four
@@ -1244,11 +1245,14 @@ def attention_bwd_work(B, H, Hk, Sq, Sk, hd, causal, window, elt) -> tuple:
 
 
 def ssm_bwd_work(B, S, D, N) -> tuple:
-    """The same for one ``ssm_scan_backward`` call: the forward's states
-    recomputed (6 operations a state a step) and about 14 more for g, the
-    five gradients' terms; one exponential a state a step (the least: the
-    forward's, reused); dt, x, dy, B, C, A and the saved states read once,
-    d(dt), dx, dB, dC, dA written once."""
+    """The same for one ``ssm_scan_backward`` call, the least work of any
+    design: the forward's states recomputed (6 operations a state a step)
+    and about 14 more for g and the five gradients' terms; one exponential
+    a state a step (the kernel takes each once, for both of its scans);
+    dt, x, dy, B, C, A and the saved states read once, d(dt), dx, dB, dC,
+    dA written once.  The kernel's scans (a lane's pair and 5 shuffle
+    rounds a direction), its dB/dC partials and its sums over n in shared
+    memory come on top and are not counted."""
     n_chunks = -(-S // 128)
     return (20.0 * B * S * D * N,
             4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N
@@ -1256,8 +1260,10 @@ def ssm_bwd_work(B, S, D, N) -> tuple:
             float(B * S * D * N))
 
 
-# the backward kernels' names in a profile (csrc/flash_attention_backward.cu)
+# the backward kernels' launches' names in a profile
+# (csrc/flash_attention_backward.cu, csrc/ssm_scan_backward.cu)
 ATTN_BWD_KERNELS = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
+SSM_BWD_KERNELS = ("ssm_scan_backward_kernel", "ssm_scan_backward_reduce")
 
 
 def dev_time(e) -> float:
@@ -1267,10 +1273,11 @@ def dev_time(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def kernel_split(fn, calls: int = 10) -> str:
-    """The device time a call of each of ``flash_attention_backward``'s
-    three launches, over ``calls`` calls of ``fn`` (``torch.profiler``;
-    "not measured" if the profile holds no device time for them)."""
+def kernel_split(fn, names, calls: int = 10) -> str:
+    """The device time a call of each launch named in ``names`` (kernel
+    names as the profile shows them, by substring), over ``calls`` calls
+    of ``fn`` (``torch.profiler``; "not measured" if the profile holds no
+    device time for them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1282,7 +1289,7 @@ def kernel_split(fn, calls: int = 10) -> str:
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     us = {n: sum(dev_time(e) for e in events if n in e.key) / calls
-          for n in ATTN_BWD_KERNELS}
+          for n in names}
     if not sum(us.values()):
         return "per-launch split not measured (no device time profiled)"
     return "per call " + ", ".join(f"{n} {v / 1e3:.5f} ms"
@@ -1501,7 +1508,8 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
             f"k/v [{B},{Hk},{Sk},{hd}] {str(dt)[6:]} causal: ms {ms:.5f} "
             f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f}{fma} bound_by"
             f" {by} ({term}) library_ms (SDPA backward) {library_ms:.5f} | "
-            f"eager call_ms {call:.5f} | {kernel_split(kern)}")
+            f"eager call_ms {call:.5f} | "
+            f"{kernel_split(kern, ATTN_BWD_KERNELS)}")
         del q, k, v, do, o, lse, leaves, out
     B, S, D, N = BWD_SSM_CASES[0]
     ins = (torch.rand((B, S, D), generator=gen, device=dev) * 0.1 + 1e-3,
@@ -1522,7 +1530,8 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
                                            None)
     log(f"time ssm_scan_backward [{B},{S},{D}] N={N} fp32: ms {ms:.5f} "
         f"plain_ms {plain_ms:.5f} bound_us {1e3 * bnd:.4f} bound_by {by} "
-        f"({term}) library_ms None | eager call_ms {call:.5f}")
+        f"({term}) library_ms None | eager call_ms {call:.5f} | "
+        f"{kernel_split(kern, SSM_BWD_KERNELS)}")
     del ins, dy, h_chunks
 
     # (b) SmolLM-135M at full width through repro_torch.launch.train

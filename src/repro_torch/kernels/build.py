@@ -40,7 +40,7 @@ SIGNATURES = {
     + [_I, _I, _D, _I, _P],
     "flash_attention_backward": [_P] * 11 + [_I] * 8 + [_D, _I, _P],
     "ssm_scan_forward": [_P] * 9 + [_I] * 4 + [_P],
-    "ssm_scan_backward": [_P] * 17 + [_I] * 4 + [_P],
+    "ssm_scan_backward": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

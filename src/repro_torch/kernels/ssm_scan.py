@@ -16,10 +16,14 @@ Training runs it too: on CUDA tensors that need a gradient,
 kernel saving the state before every ``SAVE_EVERY``-th step (the memory
 discipline of the reference's remat-chunked scan, ``MAMBA_CHUNK``) and
 whose backward is the kernel of ``csrc/ssm_scan_backward.cu``: it
-recomputes each chunk's states, walks back in time and returns d(dt), dB,
-dC, dx, dA (and dh0), with its sums over channels, batch rows and steps
-taken in a fixed order (repeatable bits).  :func:`ssm_scan_backward_plain`
-(autograd over the plain version) is what it is held against.
+returns d(dt), dB, dC, dx, dA (and dh0), one warp a (channel, state) with
+its lanes taking the time steps, the states recomputed from the saved ones
+by warp scans in registers (no state in device memory: the wrapper
+allocates only the outputs and the per-block dB/dC and per-row dA
+partials, sized by :func:`backward_channels_per_block`), and its sums over
+states, channels, batch rows and steps taken in a fixed order (repeatable
+bits).  :func:`ssm_scan_backward_plain` (autograd over the plain version)
+is what it is held against.
 """
 from __future__ import annotations
 
@@ -116,6 +120,14 @@ def ssm_scan_cuda(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     return _forward_cuda(dt, b_in, c_in, x, a, h0, False)[:2]
 
 
+def backward_channels_per_block(B: int, D: int, sms: int) -> int:
+    """Channels a block of the backward kernel walks: a multiple of 8 (a
+    stage's 32-byte rows), as few as give about one block per SM (one
+    block of 32 N threads fills an SM), at most 256 (shared memory).  The
+    dB/dC partials are B ceil(D / cpb) 2 N S floats."""
+    return min(256, 8 * -(-B * D // (8 * sms)))
+
+
 def ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh=None,
                            h0_given=False):
     """Launch the backward kernel from the forward's inputs, its saved
@@ -130,9 +142,10 @@ def ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh=None,
             B, -(-S // SAVE_EVERY), D, N):
         raise ValueError("ssm_scan_backward: dy or the saved states have "
                          "the wrong shape")
+    cpb = backward_channels_per_block(
+        B, D, torch.cuda.get_device_properties(x.device).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=x.device)
-    scratch = torch.empty((B, SAVE_EVERY, MAX_STATE, D), **f32)
-    part_bc = torch.empty((B, S, -(-D // 32), 32), **f32)
+    part_bc = torch.empty((B, -(-D // cpb), 2, N, S), **f32)
     part_a = torch.empty((B, D, N), **f32)
     ddt, dx = torch.empty((B, S, D), **f32), torch.empty((B, S, D), **f32)
     db, dc = torch.empty((B, S, N), **f32), torch.empty((B, S, N), **f32)
@@ -143,9 +156,9 @@ def ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh=None,
     rc = lib.ssm_scan_backward(
         dt.data_ptr(), b_in.data_ptr(), c_in.data_ptr(), x.data_ptr(),
         a.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(), _ptr(dh),
-        scratch.data_ptr(), part_bc.data_ptr(), part_a.data_ptr(),
-        ddt.data_ptr(), db.data_ptr(), dc.data_ptr(), dx.data_ptr(),
-        da.data_ptr(), _ptr(dh0), B, S, D, N, stream)
+        part_bc.data_ptr(), part_a.data_ptr(), ddt.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), dx.data_ptr(), da.data_ptr(), _ptr(dh0), B, S, D, N,
+        cpb, stream)
     build.check(rc, "ssm_scan_backward")
     backward_launches += 1
     return ddt, db, dc, dx, da, dh0

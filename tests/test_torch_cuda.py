@@ -1058,7 +1058,10 @@ def _ssm_inputs(dev, B, S, D, N, seed):
 
 
 @pytest.mark.parametrize("B,S,D,N", [(2, 300, 200, 16), (1, 128, 64, 8),
-                                     (2, 33, 130, 13), (1, 1, 8, 5)])
+                                     (2, 33, 130, 13), (1, 1, 8, 5),
+                                     (2, 129, 200, 16), (2, 256, 200, 16),
+                                     (2, 257, 200, 16), (1, 300, 1000, 16),
+                                     (2, 300, 200, 1)])
 @pytest.mark.parametrize("with_dh", [False, True])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssm_scan_backward_matches_plain(dev, B, S, D, N, with_dh, with_h0):
