@@ -184,7 +184,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      tok/s, attention launches; each again as a float32 copy of one period
      through the kernels and through the plain versions (prefill logits
      within 1e-4 of max |logit|, identical greedy tokens);
- 14. one JSON line per kernel (``fused_mlp``'s with its serving shape
+ 14. the dry-run cells start (:func:`start_dryruns`) before phase 8, so
+     that they run on the host's idle cores beside phases 8-13, each a
+     process of
+     ``python -m repro_torch.launch.dryrun --extrapolate`` on a fake
+     256-rank group (fake CUDA tensors: the kernels' operators traced
+     through their fake implementations, no card), ``DRYRUN_CELLS``:
+     Mixtral 8x7B at train_4k and decode_32k on pod16x16, each with its
+     own time limit; beside them a NCCL start whose second rank never
+     comes, which must raise within its 10 s timeout;
+ 15. sharded training on a 1x1 NCCL mesh (:func:`sharded_training`): (a)
+     SmolLM-135M whole, bf16, B = 8 x S = 1,024, ``MESH_STEPS`` steps
+     through ``train(mesh=...)`` against as many on the one-device path
+     with the same arguments (losses within rtol 1e-5, bitwise or not
+     printed; the same ``flash_attention`` and backward launches); (b)
+     Jamba at full width with 2 of 32 layers, 2 steps of 2 x 512 on the
+     mesh against phase 13 (c)'s first two losses (rtol 1e-5), both scan
+     kernels launched, peak memory printed; (d) ``compressed_psum`` on the
+     1-rank NCCL group against the same on a gloo group of the CPU
+     (bitwise); then each dry-run record (:func:`finish_dryruns`): peak
+     bytes, flops and wire bytes a device, flops beside
+     ``model_flops_analytic`` over the 256 devices;
+ 16. one JSON line per kernel (``fused_mlp``'s with its serving shape
      under ``serve``), then the result line.
 """
 from __future__ import annotations
@@ -1635,6 +1656,7 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     if not (np.isfinite(losses).all() and all(m > 0 for m in moved.values())):
         fail("train jamba: a loss is not finite or the parameters stayed")
+    JAMBA_LOSSES[:] = losses           # phase 15 (b) is held against them
     for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
                  "flash_attention_backward"):
         if counts[name] != JAMBA_STEPS:
@@ -1750,6 +1772,183 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
     if zoo_counts["flash_attention"] <= 0:
         fail("kernel flash_attention was never launched on the zoo path")
     return train_counts, zoo_counts
+
+
+# phase 15: sharded training on a 1x1 NCCL mesh and the production dry-run
+MESH_STEPS = 10
+MESH_JAMBA_STEPS = 2
+JAMBA_LOSSES: list = []      # phase 13 (c)'s one-device losses
+# (arch, shape, time limit in s) of the dry-run cells, each a process on the
+# fake 256-rank group, traced at 2 and 3 periods and carried to the depth
+DRYRUN_CELLS = (("mixtral-8x7b", "train_4k", 600),
+                ("mixtral-8x7b", "decode_32k", 300))
+
+
+def start_dryruns(out_dir: str) -> list:
+    """Start each dry-run cell (``python -m repro_torch.launch.dryrun``,
+    fake CUDA tensors, no card) and a NCCL start that must fail (a world
+    of 2 whose second rank never comes, 10 s timeout), all at once;
+    returns (label, process, time limit, start, log path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape, limit in DRYRUN_CELLS:
+        path = os.path.join(out_dir, f"{arch}__{shape}.log")
+        runs.append((f"{arch} {shape}", subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--extrapolate",
+             "--out", out_dir], env=env, stdout=open(path, "w"),
+            stderr=subprocess.STDOUT), limit, time.time(), path))
+    path = os.path.join(out_dir, "nccl_fail.log")
+    probe = ("import sys; sys.path.insert(0, %r)\n"
+             "from repro_torch.launch import mesh\n"
+             "try:\n"
+             "    mesh.init_distributed('cuda', init_method='tcp://127.0.0.1:"
+             "%d', rank=0, world_size=2, timeout=10)\n"
+             "except Exception as e:\n"
+             "    print('raised', type(e).__name__); sys.exit(3)\n"
+             "print('no error')\n") % (SRC, free_port())
+    runs.append(("nccl start that must fail", subprocess.Popen(
+        [sys.executable, "-c", probe], env=env, stdout=open(path, "w"),
+        stderr=subprocess.STDOUT), 120, time.time(), path))
+    return runs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def sharded_training(dev, card: str) -> dict:
+    """Phase 15 (a), (b), (d) on a 1x1 NCCL mesh (see the module
+    docstring); returns the mesh path's launch counts."""
+    import dataclasses as dc_
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod, train as train_mod
+
+    mesh_mod.init_distributed("cuda", init_method="tcp://127.0.0.1:%d"
+                              % free_port(), rank=0, world_size=1)
+    mesh = mesh_mod.make_test_mesh(1, 1, device="cuda")
+    log(f"mesh: {mesh} over NCCL (backend {dist.get_backend()}) on {card}")
+    mesh_counts = {}
+
+    def run(label, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        _, losses = train_mod.train(device="cuda", log_every=100, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts = ops.launch_counts()
+        log(f"{label}: {kw.get('steps')} steps in {wall:.3f} s, losses "
+            f"{losses}; launches {counts}; peak_mem_gb "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        return losses, counts
+
+    # (a) SmolLM-135M whole, bf16, B = 8 x S = 1,024: the mesh against the
+    # one-device path with the same arguments
+    kw = dict(arch="smollm-135m", reduced=False, steps=MESH_STEPS,
+              global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    mesh_losses, counts = run("mesh 1x1 smollm-135m", mesh=mesh, **kw)
+    one_losses, one_counts = run("one device smollm-135m", **kw)
+    rel = np.abs(np.subtract(mesh_losses, one_losses)) / np.abs(one_losses)
+    log(f"smollm-135m mesh 1x1 against one device: losses max rel "
+        f"{rel.max():.3e}, bitwise {mesh_losses == one_losses}")
+    if not (np.isfinite(mesh_losses).all() and rel.max() <= 1e-5):
+        fail("mesh 1x1: SmolLM's losses differ from the one-device run's")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if counts[name] != one_counts[name] or not counts[name]:
+            fail(f"mesh 1x1: {name} launched {counts[name]} times, the "
+                 f"one-device run {one_counts[name]}")
+    mesh_counts = dict(counts)
+
+    # (b) Jamba at full width, 2 of 32 layers, against phase 13 (c)
+    cfg = dc_.replace(get_config("jamba-v0.1-52b"), n_layers=2)
+    losses, counts = run("mesh 1x1 jamba-v0.1-52b 2 layers",
+                         arch="jamba-v0.1-52b", cfg=cfg, mesh=mesh, seed=SEED,
+                         steps=MESH_JAMBA_STEPS, global_batch=2, seq_len=512)
+    want = JAMBA_LOSSES[:MESH_JAMBA_STEPS]
+    rel = np.abs(np.subtract(losses, want)) / np.abs(want)
+    log(f"jamba mesh 1x1 against phase 13 (c): losses {losses} against "
+        f"{want}, max rel {rel.max():.3e}")
+    if not rel.max() <= 1e-5:
+        fail("mesh 1x1: Jamba's losses differ from phase 13 (c)'s")
+    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
+                 "flash_attention_backward"):
+        if counts[name] != MESH_JAMBA_STEPS:
+            fail(f"mesh 1x1 jamba: {name} launched {counts[name]} times")
+    mesh_counts = {k: mesh_counts[k] + v for k, v in counts.items()}
+
+    # (d) compressed_psum on the 1-rank NCCL group, against the same on a
+    # gloo group of the CPU
+    gloo = dist.new_group(backend="gloo")
+    gen = torch.Generator().manual_seed(SEED)
+    grads = {"a": torch.randn(4096, generator=gen),
+             "b": torch.randn(64, 129, generator=gen) * 100}
+    res = comp.init_residuals(grads)
+    on_card = comp.compressed_psum({k: v.to(dev) for k, v in grads.items()},
+                                   {k: v.to(dev) for k, v in res.items()})
+    on_cpu = comp.compressed_psum(grads, res, gloo)
+    err = max(float((on_card[i][k].cpu() - on_cpu[i][k]).abs().max())
+              for i in (0, 1) for k in grads)
+    log(f"compressed_psum on the card's 1-rank NCCL group against the CPU's "
+        f"gloo group: max abs err {err:.3e} (grads and residuals)")
+    if err != 0.0:
+        fail("compressed_psum: the card's result differs from the CPU's")
+    dist.destroy_process_group()
+    return mesh_counts
+
+
+def finish_dryruns(runs: list, card: str, out_dir: str) -> None:
+    """Wait for each process of :func:`start_dryruns` within its limit,
+    then print each cell's record beside the analytic flops."""
+    for label, proc, limit, t0, path in runs:
+        try:
+            proc.wait(timeout=max(1.0, limit - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"dry-run {label}: over its {limit} s limit; tail "
+                 f"{open(path).read()[-2000:]}")
+        wall = time.time() - t0
+        if label.startswith("nccl"):
+            out = open(path).read()
+            if proc.returncode != 3 or "raised" not in out:
+                fail(f"a NCCL start whose second rank never comes did not "
+                     f"raise: {out[-1000:]}")
+            log(f"nccl start that must fail: {out.strip().splitlines()[-1]}"
+                f" (read {wall:.1f} s after its start)")
+            continue
+        arch, shape = label.split()
+        if proc.returncode != 0:
+            fail(f"dry-run {label}: exit {proc.returncode}; tail "
+                 f"{open(path).read()[-2000:]}")
+        with open(os.path.join(out_dir,
+                               f"{arch}__{shape}__pod16x16.json")) as f:
+            rec = json.load(f)
+        mem, colls = rec["memory"], rec["collectives"]
+        flops, model = rec["cost"]["flops_per_device"], \
+            rec["analytic"]["model_flops"] / rec["n_devices"]
+        log(f"dry-run {arch} {shape} pod16x16 ({rec['n_devices']} fake "
+            f"ranks, traced on the host of {card} in {rec['trace_s']} s; "
+            f"read {wall:.1f} s after its start): status "
+            f"{rec['status']}; peak_bytes/dev {mem['peak_bytes']:.6e} "
+            f"(argument {mem['argument_bytes']:.6e}, output "
+            f"{mem['output_bytes']:.6e}, temp {mem['temp_bytes']:.6e}); "
+            f"flops/dev {flops:.6e} against model_flops_analytic/dev "
+            f"{model:.6e} (ratio {flops / model:.4f}); wire_bytes/dev "
+            f"{colls['total_wire_bytes']:.6e} by kind "
+            f"{colls['per_kind_bytes']} counts {colls['per_kind_count']}; "
+            f"extrapolated from periods {rec.get('extrapolated_from_periods')}")
+        if rec["status"] != "OK":
+            fail(f"dry-run {label}: status {rec['status']}")
 
 
 def phase_mark(n: int, name: str, _t0=time.time()) -> None:
@@ -2546,6 +2745,12 @@ def main() -> None:
     log(f"kill/resume: resumed summaries (but wall_s) and frontiers == the "
         f"uninterrupted run's; frontier sizes {json.dumps(sizes)}")
 
+    # ---- 14. the dry-run cells start, each a process on the host's idle
+    # cores beside phases 8-13 (fake tensors: no card, no device memory) --
+    phase_mark(14, "the dry-run cells start, beside phases 8-13")
+    dry_out = os.path.join(OUT, "dryrun")
+    dry_runs = start_dryruns(dry_out)
+
     # ---- 8. LM serving -----------------------------------------------------
     phase_mark(8, "LM serving")
     # each run through serve's own inputs + generate, the kernels' launches
@@ -2877,8 +3082,13 @@ def main() -> None:
     phase_mark(13, "LM training and the rest of the zoo")
     train_counts, zoo_counts = lm_training_zoo(dev, timings, errs)
 
-    # ---- 14. results ------------------------------------------------------
-    phase_mark(14, "results")
+    # ---- 15. sharded training on a 1x1 NCCL mesh, the dry-run results ------
+    phase_mark(15, "sharded training and the production dry-run")
+    mesh_counts = sharded_training(dev, card)
+    finish_dryruns(dry_runs, card, dry_out)
+
+    # ---- 16. results ------------------------------------------------------
+    phase_mark(16, "results")
     # actor_moe and screen_score at the single search's shapes with its
     # launch counts; sumtree, sumtree_sample and fused_mlp at the campaign
     # batch's (B = 448; 256 samples per SAC update) with the campaign's;
@@ -2921,7 +3131,8 @@ def main() -> None:
                 ("single", counts), ("campaign", camp_counts),
                 ("scenario", scen_counts), ("scalar", scalar["sac"][1]),
                 ("lm", lm_counts), ("train", train_counts),
-                ("lm_zoo", zoo_counts), *fleet_counts.items(),
+                ("lm_zoo", zoo_counts), ("mesh", mesh_counts),
+                *fleet_counts.items(),
                 *phase12.items())}))
     # fused_mlp also at the index surrogate's serving shape (phase 12)
     ms, plain, bnd, by, term, call, library_ms = timings[("fused_mlp",

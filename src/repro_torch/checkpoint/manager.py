@@ -14,6 +14,15 @@ and each package reads the other's checkpoints (``restore_flat``, and
 Tensors are copied to host numpy arrays; a bfloat16 leaf is stored as its
 2-byte bits (uint16) under a ``bfloat16`` dtype tag, as the reference
 stores its own.
+
+Sharded trees: a DTensor leaf is saved whole (``full_tensor()``, a
+collective every rank of the process group joins), and rank 0 alone
+writes; every rank returns after the write.  :func:`restore` takes
+``shardings`` (a tree of placements matching the template, as
+``repro_torch.distributed.sharding.param_shardings`` gives) and a
+``mesh``, and deals each whole array onto any mesh, whatever mesh wrote it
+(the reference's elastic restore); a DTensor template leaf without them
+keeps its own mesh and placements.
 """
 from __future__ import annotations
 
@@ -25,8 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.fsutil import fsync_dir, fsync_file
+from repro_torch.distributed.sharding import is_placements, local_shard
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -49,6 +61,8 @@ def _leaves_with_names(tree: Any, prefix: str = ""
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -123,8 +137,19 @@ def _json_safe(obj: Any) -> Any:
 
 def save(tree: Any, ckpt_dir: str, step: int, *, keep: int = 3,
          extra: Optional[Dict] = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     flat, dtypes = _flatten(tree)
+    if dist.is_initialized():
+        final = os.path.join(ckpt_dir, f"step_{int(step):08d}")
+        if dist.get_rank() == 0:
+            _write(flat, dtypes, ckpt_dir, step, keep, extra)
+        dist.barrier()
+        return final
+    return _write(flat, dtypes, ckpt_dir, step, keep, extra)
+
+
+def _write(flat, dtypes, ckpt_dir: str, step: int, keep: int,
+           extra: Optional[Dict]) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     manifest = dict(step=int(step),
                     names=list(flat.keys()),
                     dtypes=dtypes,
@@ -197,28 +222,43 @@ def restore_flat(ckpt_dir: str, step: Optional[int] = None
 
 def _map_named(tree: Any, fn, prefix: str = "") -> Any:
     """``tree`` with each leaf replaced by fn(name, leaf), the names those
-    of :func:`_leaves_with_names`."""
+    of :func:`_leaves_with_names` (a tuple of placements is a leaf)."""
     join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
     if isinstance(tree, dict):
         return {k: _map_named(v, fn, join(k)) for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*(_map_named(getattr(tree, f), fn, join("." + f))
                             for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not is_placements(tree):
         return type(tree)(_map_named(v, fn, join(i))
                           for i, v in enumerate(tree))
     return fn(prefix, tree)
 
 
-def restore(template: Any, ckpt_dir: str, step: Optional[int] = None) -> Any:
+def restore(template: Any, ckpt_dir: str, step: Optional[int] = None, *,
+            shardings: Any = None, mesh=None) -> Any:
     """Restore into the template's structure (port of the reference's
     ``restore``): each leaf taken by its name, in the checkpoint's dtype
-    (bfloat16 kept), on the template leaf's device.  There is no
-    ``shardings`` argument: the port trains on one device."""
+    (bfloat16 kept), on the template leaf's device.  ``shardings`` (a
+    tree of placements, or None for a leaf to keep whole) with ``mesh``
+    re-targets any mesh, the elastic path; without them a DTensor template
+    leaf is dealt onto its own mesh and placements."""
     flat, manifest = restore_flat(ckpt_dir, step)
-    return _map_named(template, lambda name, leaf: _to_tensor(
-        flat[name], manifest["dtypes"][name],
-        leaf.device if isinstance(leaf, torch.Tensor) else "cpu"))
+    place = {}
+    if shardings is not None:
+        _map_named(shardings, lambda name, p: place.__setitem__(name, p))
+
+    def one(name, leaf):
+        dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+        if place.get(name) is not None:
+            dev = mesh.device_type
+        t = _to_tensor(flat[name], manifest["dtypes"][name], dev)
+        if place.get(name) is not None:
+            return local_shard(t, mesh, place[name])
+        if isinstance(leaf, DTensor):
+            return local_shard(t, leaf.device_mesh, leaf.placements)
+        return t
+    return _map_named(template, one)
 
 
 def manifest_of(ckpt_dir: str, step: Optional[int] = None) -> Dict:

@@ -35,12 +35,19 @@ def tree_to_torch(tree, device="cpu"):
     return torch.as_tensor(arr.copy(), device=device)
 
 
-def lm_params(tree, device="cpu"):
+def lm_params(tree, device="cpu", mesh=None):
     """The reference's ``lm.init_params`` tree (numpy leaves, as
     ``jax.tree_util.tree_map(np.asarray, ...)`` gives them) -> the port's,
     each leaf keeping its dtype.  A jax bfloat16 array comes out of
     ``np.asarray`` as an ``ml_dtypes`` bfloat16 array (dtype kind ``'V'``),
-    which torch does not take: its bits are carried across as uint16."""
+    which torch does not take: its bits are carried across as uint16.
+    ``mesh``: DTensors placed by the training rules (``param_shardings``,
+    FSDP over "data", TP over "model")."""
+    if mesh is not None:
+        from repro_torch.distributed import sharding as sh
+        whole = lm_params(tree, device)
+        return sh.distribute(whole, mesh, sh.param_shardings(
+            whole, mesh, fsdp="data", tp="model"))
     if isinstance(tree, Mapping):
         return {k: lm_params(v, device) for k, v in tree.items()}
     arr = np.asarray(tree)

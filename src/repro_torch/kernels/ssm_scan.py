@@ -11,19 +11,23 @@ when omitted) -> (y [B,S,D], h_final [B,D,N]), all float32.  The Pallas
 kernel returns y only; the Mamba prefill also needs the final state for its
 decode cache, so the port's kernel returns both.  Any S; N <= 16.
 
-Training runs it too: on CUDA tensors that need a gradient,
-:func:`ssm_scan` is a ``torch.autograd.Function`` whose forward is the
-kernel saving the state before every ``SAVE_EVERY``-th step (the memory
-discipline of the reference's remat-chunked scan, ``MAMBA_CHUNK``) and
-whose backward is the kernel of ``csrc/ssm_scan_backward.cu``: it
-returns d(dt), dB, dC, dx, dA (and dh0), one warp a (channel, state) with
+:func:`ssm_scan` is the operator ``repro_torch::ssm_scan``
+(``torch.library.custom_op``, with a fake implementation for shapes and
+DTensor sharding rules: batch split, or channels split with B and C
+replicated).  Training runs it too: for inputs that need a gradient its
+forward is the kernel saving the state before every ``SAVE_EVERY``-th
+step (the memory discipline of the reference's remat-chunked scan,
+``MAMBA_CHUNK``) and its autograd formula the operator
+``repro_torch::ssm_scan_backward``, the kernel of
+``csrc/ssm_scan_backward.cu``: it returns d(dt), dB, dC, dx, dA (and
+dh0), one warp a (channel, state) with
 its lanes taking the time steps, the states recomputed from the saved ones
 by warp scans in registers (no state in device memory: the wrapper
 allocates only the outputs and the per-block dB/dC and per-row dA
 partials, sized by :func:`backward_channels_per_block`), and its sums over
 states, channels, batch rows and steps taken in a fixed order (repeatable
-bits).  :func:`ssm_scan_backward_plain` (autograd over the plain version)
-is what it is held against.
+bits).  :func:`ssm_scan_backward_plain` (the plain version's gradient,
+written out) is what it is held against.
 """
 from __future__ import annotations
 
@@ -111,8 +115,8 @@ def ssm_scan_cuda(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
                   h0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on x's device and current stream.  Inputs
-    that need a gradient go through :func:`ssm_scan` (the autograd
-    Function); here they raise."""
+    that need a gradient go through :func:`ssm_scan` (the operator); here
+    they raise."""
     ins = (dt, b_in, c_in, x, a) + (() if h0 is None else (h0,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise RuntimeError("ssm_scan_cuda: inputs need a gradient; call "
@@ -166,56 +170,162 @@ def ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh=None,
 
 def ssm_scan_backward_plain(dt, b_in, c_in, x, a, h0=None, dy=None,
                             dh=None):
-    """The plain version of the backward: autograd over
-    :func:`ssm_scan_plain`; returns (d(dt), dB, dC, dx, dA, dh0 or None)
-    for the gradients ``dy`` of y and ``dh`` of h_final (None: zero)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True)
-                  for t in (dt, b_in, c_in, x, a)]
-        h = None if h0 is None else h0.detach().requires_grad_(True)
-        y, h_final = ssm_scan_plain(*leaves, h)
-        outs, grads = [y], [dy]
-        if dh is not None:
-            outs.append(h_final)
-            grads.append(dh)
-        got = torch.autograd.grad(outs, leaves + ([] if h is None else [h]),
-                                  grads)
-    return tuple(got) + ((None,) if h is None else ())
+    """The plain version of the backward: the gradient of
+    :func:`ssm_scan_plain` written out (the states recomputed forward, then
+    the state's gradient carried back through time), without autograd, so
+    that it also runs inside an operator's implementation below DTensor's
+    dispatch; returns (d(dt), dB, dC, dx, dA, dh0 or None) for the
+    gradients ``dy`` of y and ``dh`` of h_final (None: zero), in float32
+    (float64 for float64 inputs, as the plain forward)."""
+    B, S, D = x.shape
+    N = a.shape[1]
+    ft = torch.promote_types(x.dtype, torch.float32)
+    dt_, b_, c_, x_, a_ = (t.to(ft) for t in (dt, b_in, c_in, x, a))
+    h = torch.zeros((B, D, N), dtype=ft, device=x.device) \
+        if h0 is None else h0.to(ft)
+    hs, decays = [h], []
+    for t in range(S):
+        decays.append(torch.exp(dt_[:, t, :, None] * a_))
+        h = decays[-1] * h + (dt_[:, t] * x_[:, t])[..., None] \
+            * b_[:, t, None, :]
+        hs.append(h)
+    gh = torch.zeros_like(h) if dh is None else dh.to(ft)
+    dy_ = torch.zeros_like(x_) if dy is None else dy.to(ft)
+    ddt, dx = torch.empty_like(x_), torch.empty_like(x_)
+    db, dc = torch.empty_like(b_), torch.empty_like(c_)
+    da = torch.zeros_like(a_)
+    for t in reversed(range(S)):
+        gh = gh + dy_[:, t, :, None] * c_[:, t, None, :]
+        dc[:, t] = (dy_[:, t, :, None] * hs[t + 1]).sum(1)
+        g_decay = gh * hs[t] * decays[t]          # through exp(dt A)
+        u = dt_[:, t] * x_[:, t]
+        gu = (gh * b_[:, t, None, :]).sum(-1)
+        db[:, t] = (gh * u[..., None]).sum(1)
+        ddt[:, t] = (g_decay * a_).sum(-1) + gu * x_[:, t]
+        dx[:, t] = gu * dt_[:, t]
+        da += (g_decay * dt_[:, t, :, None]).sum(0)
+        gh = gh * decays[t]
+    return (ddt, db, dc, dx, da, None if h0 is None else gh)
 
 
-class _SSMScan(torch.autograd.Function):
-    """The forward kernel, with the chunk-boundary states saved, and the
-    backward kernel as its gradient."""
+# The kernels as PyTorch operators (as ``flash_attention``'s): CUDA
+# launches the kernel, the CPU runs the plain version, a fake
+# implementation gives the shapes, the autograd formula is the backward
+# operator, and the sharding rules say which DTensor placements each takes.
+def _no_chunks(x, n):
+    return x.new_empty((x.shape[0], 0, x.shape[2], n))
 
-    @staticmethod
-    def forward(ctx, dt, b_in, c_in, x, a, h0):
-        y, h_final, h_chunks = _forward_cuda(dt, b_in, c_in, x, a, h0, True)
-        ctx.save_for_backward(dt, b_in, c_in, x, a, h_chunks)
-        ctx.h0_given = h0 is not None
-        return y, h_final
 
-    @staticmethod
-    def backward(ctx, dy, dh):
-        dt, b_in, c_in, x, a, h_chunks = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        return ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh,
-                                      ctx.h0_given)
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
+def scan_op(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+            x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor],
+            save: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        y, h = ssm_scan_plain(dt, b_in, c_in, x, a, h0)
+        return y, h, _no_chunks(x, a.shape[1])
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: unsupported device {x.device}")
+    y, h, chunks = _forward_cuda(dt, b_in, c_in, x, a, h0, save)
+    return y, h, chunks if save else _no_chunks(x, a.shape[1])
+
+
+@scan_op.register_fake
+def _(dt, b_in, c_in, x, a, h0, save):
+    B, S, D = x.shape
+    N = a.shape[1]
+    n = -(-S // SAVE_EVERY) if save and x.device.type != "cpu" else 0
+    return (x.new_empty((B, S, D)), x.new_empty((B, D, N)),
+            x.new_empty((B, n, D, N)))
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_backward", mutates_args=())
+def scan_backward_op(dt: torch.Tensor, b_in: torch.Tensor,
+                     c_in: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                     h0: Optional[torch.Tensor], h_chunks: torch.Tensor,
+                     dy: torch.Tensor, dh: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, D, N = x.shape[0], x.shape[2], a.shape[1]
+    if x.device.type == "cpu":
+        got = ssm_scan_backward_plain(dt, b_in, c_in, x, a, h0, dy, dh)
+    elif x.device.type == "cuda":
+        got = ssm_scan_backward_cuda(dt, b_in, c_in, x, a, h_chunks, dy, dh,
+                                     h0 is not None)
+    else:
+        raise ValueError(f"ssm_scan: unsupported device {x.device}")
+    return (*got[:5], x.new_empty((B, D, 0)) if got[5] is None else got[5])
+
+
+@scan_backward_op.register_fake
+def _(dt, b_in, c_in, x, a, h0, h_chunks, dy, dh):
+    B, D, N = x.shape[0], x.shape[2], a.shape[1]
+    return (torch.empty_like(dt), torch.empty_like(b_in),
+            torch.empty_like(c_in), torch.empty_like(x), torch.empty_like(a),
+            x.new_empty((B, D, N if h0 is not None else 0)))
+
+
+def _save(ctx, inputs, output):
+    dt, b_in, c_in, x, a, h0, _ = inputs
+    ctx.h0_given = h0 is not None
+    ctx.save_for_backward(dt, b_in, c_in, x, a, h0, output[2])
+
+
+def _backward(ctx, dy, dh, _dchunks):
+    dt, b_in, c_in, x, a, h0, h_chunks = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros_like(x)
+    if dh is None:
+        dh = torch.zeros_like(x[:, 0, :, None].expand(-1, -1, a.shape[1]))
+    *grads, dh0 = scan_backward_op(dt, b_in, c_in, x, a, h0, h_chunks, dy,
+                                   dh)
+    return (*grads, dh0 if ctx.h0_given else None, None)
+
+
+scan_op.register_autograd(_backward, setup_context=_save)
+
+
+def _register_sharding():
+    """One mesh dimension's choices: all replicated; the batch split (A
+    replicated; dA a partial sum over the rows); or the channels split
+    (dt, x, A, h0 and their gradients), B and C replicated and their
+    gradients partial sums over the channels."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R, P, S = Replicate(), Partial(), Shard
+
+    def opt(h0, place):
+        return place if h0 is not None else None
+
+    @register_sharding(torch.ops.repro_torch.ssm_scan.default)
+    def _(dt, b_in, c_in, x, a, h0, save):
+        return [([R, R, R], [R, R, R, R, R, opt(h0, R), None]),
+                ([S(0), S(0), S(0)],
+                 [S(0), S(0), S(0), S(0), R, opt(h0, S(0)), None]),
+                ([S(2), S(1), S(2)],
+                 [S(2), R, R, S(2), S(0), opt(h0, S(1)), None])]
+
+    @register_sharding(torch.ops.repro_torch.ssm_scan_backward.default)
+    def _(dt, b_in, c_in, x, a, h0, h_chunks, dy, dh):
+        return [([R] * 6, [R, R, R, R, R, opt(h0, R), R, R, R]),
+                ([S(0), S(0), S(0), S(0), P, S(0)],
+                 [S(0), S(0), S(0), S(0), R, opt(h0, S(0)), S(0), S(0),
+                  S(0)]),
+                ([S(2), P, P, S(2), S(0), S(1)],
+                 [S(2), R, R, S(2), S(0), opt(h0, S(1)), S(2), S(2), S(1)])]
+
+
+_register_sharding()
 
 
 def ssm_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
              x: torch.Tensor, a: torch.Tensor,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch on the tensor's device: the plain version for a CPU tensor
-    (autograd differentiates it), the CUDA kernel for a CUDA tensor, and
-    for CUDA tensors that need a gradient the autograd Function whose
-    backward is the backward kernel (no fallback between any of them)."""
-    if x.device.type == "cpu":
-        return ssm_scan_plain(dt, b_in, c_in, x, a, h0)
-    if x.device.type == "cuda":
-        ins = (dt, b_in, c_in, x, a) + (() if h0 is None else (h0,))
-        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-            return _SSMScan.apply(dt, b_in, c_in, x, a, h0)
-        return ssm_scan_cuda(dt, b_in, c_in, x, a, h0)
-    raise ValueError(f"ssm_scan: unsupported device {x.device}")
+    """The ``repro_torch::ssm_scan`` operator: the plain version for a CPU
+    tensor, the CUDA kernel for a CUDA tensor (no fallback between them),
+    the backward kernel (or the plain version's gradient on the CPU) for
+    inputs that need a gradient, and on DTensors the local shards of the
+    batch or channel split."""
+    ins = (dt, b_in, c_in, x, a) + (() if h0 is None else (h0,))
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    return scan_op(dt, b_in, c_in, x, a, h0, save)[:2]

@@ -12,10 +12,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import einsum_f32
+from repro_torch.models.layers import (contiguous, einsum_f32, reshape,
+                                       shard_hint)
 
 NEG_INF = -1e30
 
@@ -32,10 +32,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale stays 1/sqrt(hd), q's own, as in the reference."""
     vd = v.shape[-1]
     if vd < q.shape[-1]:
-        v = F.pad(v, (0, q.shape[-1] - vd))
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (q.shape[-1] - vd,))],
+                      dim=-1)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, window=window)
-    return o.transpose(1, 2)[..., :vd].to(v.dtype)
+    return contiguous(o.transpose(1, 2)[..., :vd].to(v.dtype))
 
 
 def scale_of(hd: int) -> float:
@@ -53,7 +54,7 @@ def _grouped(q: torch.Tensor, Hk: int) -> torch.Tensor:
     """[B, 1, H, hd] -> [B, 1, Hk, H // Hk, hd]: query head h reads KV head
     h // (H // Hk), as the reference's ``jnp.repeat`` of the cache does."""
     B, T, H, hd = q.shape
-    return q.reshape(B, T, Hk, H // Hk, hd)
+    return reshape(q, B, T, Hk, H // Hk, hd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -65,15 +66,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, S, Hk, hd = k_cache.shape
     H = q.shape[2]
     s = einsum_f32("bqgrd,bkgd->bgrqk", _grouped(q, Hk), k_cache)
-    s = s.reshape(B, H, 1, S) * scale_of(hd)
+    s = reshape(s, B, H, 1, S) * scale_of(hd)
     valid = valid_positions(S, length, q.device)
     if window and window > 0:
         lo = torch.as_tensor(length, device=q.device).reshape(-1, 1) - window
         valid = valid & (torch.arange(S, device=q.device)[None, :] >= lo)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1).reshape(B, Hk, H // Hk, 1, S)
+    p = reshape(torch.softmax(s, dim=-1), B, Hk, H // Hk, 1, S)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
-    return o.reshape(B, 1, H, -1).to(v_cache.dtype)
+    return reshape(o, B, 1, H, -1).to(v_cache.dtype)
 
 
 def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
@@ -86,15 +87,16 @@ def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor,
     B, S, Hk, hd = k_cache.shape
     H = q.shape[2]
     qg = _grouped(q.to(k_cache.dtype), Hk)
-    s = einsum_f32("bqgrd,bkgd->bgrqk", qg, k_cache).reshape(B, H, 1, S)
-    s = s * scale_of(q.shape[-1])
+    s = reshape(einsum_f32("bqgrd,bkgd->bgrqk", qg, k_cache), B, H, 1, S)
+    # scores split along the cache's sequence, where the cache lies
+    s = shard_hint(s * scale_of(q.shape[-1]), "__dp__", None, None, "model")
     valid = valid_positions(S, length, q.device)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     m = torch.amax(s, dim=-1)                              # [B,H,1]
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)                               # [B,H,1]
-    pg = p.to(v_cache.dtype).reshape(B, Hk, H // Hk, 1, S)
-    o = einsum_f32("bgrqk,bkgd->bqgrd", pg, v_cache).reshape(B, 1, H, -1)
+    pg = reshape(p.to(v_cache.dtype), B, Hk, H // Hk, 1, S)
+    o = reshape(einsum_f32("bgrqk,bkgd->bqgrd", pg, v_cache), B, 1, H, -1)
     return o, m, l
 
 
@@ -118,7 +120,13 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write [B, 1, ...] new entries (KV heads, or MLA's latent and rotary
     key) at position ``pos`` of axis 1 (a tensor; the caller keeps it in
-    range) into copies of the caches."""
-    idx = torch.as_tensor(pos, device=k_cache.device).reshape(1).long()
-    return (k_cache.index_copy(1, idx, k_new.to(k_cache.dtype)),
-            v_cache.index_copy(1, idx, v_new.to(v_cache.dtype)))
+    range) into copies of the caches: a select against a one-hot mask of
+    the position (DTensor has no ``index_copy`` rule in every torch
+    version)."""
+    at = torch.arange(k_cache.shape[1], device=k_cache.device) \
+        == torch.as_tensor(pos, device=k_cache.device).reshape(())
+
+    def put(cache, new):
+        mask = at.reshape((1, -1) + (1,) * (cache.dim() - 2))
+        return torch.where(mask, new.to(cache.dtype), cache)
+    return put(k_cache, k_new), put(v_cache, v_new)

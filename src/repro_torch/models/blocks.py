@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, MambaConfig, XLSTMConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
@@ -167,6 +168,20 @@ def _route(p: Dict, ht: torch.Tensor, top_k: int):
     return _gates(probs, idx), idx
 
 
+def _per_token(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The decode MoE's per-token products.  On DTensors as broadcast
+    matmuls and a sum: einsum flattens the expert and width dimensions
+    together, which DTensor refuses while the width is split over a mesh
+    axis in some torch versions."""
+    if not isinstance(a, DTensor):
+        return torch.einsum(eq, a, b)
+    if eq == "td,tkdf->tkf":
+        return (a[:, None, None, :] @ b).squeeze(-2)
+    if eq == "tkf,tkfd->tkd":
+        return (a[..., None, :] @ b).squeeze(-2)
+    return (a[..., None] * b).sum(1)                         # tk,tkd->td
+
+
 def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Top-k MoE with the reference's three paths: an exact gather of the
     chosen experts for one token per row (decode), a dropless dense-masked
@@ -175,18 +190,18 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     m = cfg.moe
     B, S, d = h.shape
     T = B * S
-    ht = h.reshape(T, d)
+    ht = L.reshape(h, T, d)
     if S == 1:
         gate_vals, idx = _route(p, ht, m.top_k)              # [T, k]
         up_w = p["e_up"][idx]                                # [T,k,d,f]
         dn_w = p["e_down"][idx]                              # [T,k,f,d]
         if "e_gate" in p:
-            z = L.swiglu(torch.einsum("td,tkdf->tkf", ht, p["e_gate"][idx]),
-                         torch.einsum("td,tkdf->tkf", ht, up_w))
+            z = L.swiglu(_per_token("td,tkdf->tkf", ht, p["e_gate"][idx]),
+                         _per_token("td,tkdf->tkf", ht, up_w))
         else:
-            z = L.gelu(torch.einsum("td,tkdf->tkf", ht, up_w))
-        y = torch.einsum("tkf,tkfd->tkd", z, dn_w)
-        out = torch.einsum("tk,tkd->td", gate_vals.to(y.dtype), y)
+            z = L.gelu(_per_token("td,tkdf->tkf", ht, up_w))
+        y = _per_token("tkf,tkfd->tkd", z, dn_w)
+        out = _per_token("tk,tkd->td", gate_vals.to(y.dtype), y)
         if "s_up" in p:
             out = out + _shared_expert(p, ht)
         return out.reshape(B, S, d)
@@ -212,10 +227,15 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     tg = B * g
     cap = max(1, int(MOE_CAPACITY * m.top_k * tg / m.n_experts))
     slots = torch.arange(cap, device=h.device, dtype=torch.float32)
+    # on a mesh: the experts' FSDP shards gathered once for all the groups,
+    # and the tokens split by batch rows only, so that a group is a slice
+    p = dict(p, **{k: L.gather_fsdp(p[k]) for k in ("e_gate", "e_up",
+                                                    "e_down") if k in p})
+    h = L.shard_hint(h, "__dp__", None, None)
 
     def group_fn(hgrp):
         """hgrp: [B, g, d] -> [B, g, d] (router recomputed in-group)."""
-        ht = hgrp.reshape(tg, d)
+        ht = L.reshape(hgrp, tg, d)
         gv, ix = _route(p, ht, m.top_k)
         onehot = F.one_hot(ix, m.n_experts).float()          # [t,k,e]
         load = onehot.sum(1)                                 # [t,e]
@@ -257,22 +277,23 @@ def _attn_qkv(p: Dict, cfg: ArchConfig, h: torch.Tensor, positions):
         nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
         q = L.linear(p["wuq"], L.rmsnorm(p["q_norm"], L.linear(p["wdq"], h),
                                          cfg.norm_eps))
-        q = q.reshape(B, S, H, nope + rope)
+        q = L.reshape(q, B, S, H, nope + rope)
         c, k_rope = torch.split(L.linear(p["wdkv"], h),
                                 [m.kv_lora_rank, rope], dim=-1)
         c = L.rmsnorm(p["kv_norm"], c, cfg.norm_eps)
-        kv = L.linear(p["wukv"], c).reshape(B, S, H, nope + m.v_head_dim)
+        kv = L.reshape(L.linear(p["wukv"], c), B, S, H,
+                       nope + m.v_head_dim)
         k_nope, v = torch.split(kv, [nope, m.v_head_dim], dim=-1)
         q_nope, q_rope = torch.split(q, [nope, rope], dim=-1)
         q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-        k_rope = L.apply_rope(k_rope.reshape(B, S, 1, rope), positions,
+        k_rope = L.apply_rope(L.reshape(k_rope, B, S, 1, rope), positions,
                               cfg.rope_theta)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
         return q_full, k_full, v, dict(ckv=c, krope=k_rope)
-    q = L.linear(p["wq"], h).reshape(B, S, H, hd)
-    k = L.linear(p["wk"], h).reshape(B, S, Hk, hd)
-    v = L.linear(p["wv"], h).reshape(B, S, Hk, hd)
+    q = L.reshape(L.linear(p["wq"], h), B, S, H, hd)
+    k = L.reshape(L.linear(p["wk"], h), B, S, Hk, hd)
+    v = L.reshape(L.linear(p["wv"], h), B, S, Hk, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, dict(k=k, v=v)
@@ -286,16 +307,16 @@ def _attn_apply(p: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor, ctx,
     q, k, v, cache = _attn_qkv(p, cfg, h, positions)
     o = attn.chunked_attention(q, k, v, causal=causal,
                                window=cfg.sliding_window)
-    x = x + L.linear(p["wo"], o.reshape(B, S, -1))
+    x = x + L.linear(p["wo"], L.reshape(o, B, S, -1))
     if kind == "xattn" and ctx is not None:
         hx = L.rmsnorm(p["x_norm"], x, cfg.norm_eps)
         Sc = ctx.shape[1]
-        qx = L.linear(p["x_wq"], hx).reshape(B, S, H, hd)
-        kx = L.linear(p["x_wk"], ctx).reshape(B, Sc, Hk, hd)
-        vx = L.linear(p["x_wv"], ctx).reshape(B, Sc, Hk, hd)
+        qx = L.reshape(L.linear(p["x_wq"], hx), B, S, H, hd)
+        kx = L.reshape(L.linear(p["x_wk"], ctx), B, Sc, Hk, hd)
+        vx = L.reshape(L.linear(p["x_wv"], ctx), B, Sc, Hk, hd)
         ox = attn.chunked_attention(qx, kx, vx, causal=False)
         gate = torch.tanh(p["x_gate"].float()).to(x.dtype)
-        x = x + gate * L.linear(p["x_wo"], ox.reshape(B, S, H * hd))
+        x = x + gate * L.linear(p["x_wo"], L.reshape(ox, B, S, H * hd))
         if collect:
             cache = dict(cache, xk=kx, xv=vx)
     return x, (cache if collect else None)
@@ -310,8 +331,10 @@ def _mamba_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     xz = L.linear(p["in_proj"], h)
     xm_raw, z = torch.chunk(xz, 2, dim=-1)               # [B,S,di] each
-    # depthwise causal conv1d
-    pad = F.pad(xm_raw, (0, 0, mc.d_conv - 1, 0))
+    # depthwise causal conv1d (zeros concatenated in front: DTensor has
+    # no sound padding rule in every torch version)
+    pad = torch.cat([xm_raw.new_zeros((xm_raw.shape[0], mc.d_conv - 1,
+                                       xm_raw.shape[2])), xm_raw], dim=1)
     conv = sum(pad[:, i:i + S] * p["conv_w"][i] for i in range(mc.d_conv))
     xm = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
     proj = L.linear(p["x_proj"], xm).float()
@@ -364,12 +387,12 @@ def _mlstm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
     dqk_h, dv_h = dqk // H, di // H
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     u, z = torch.chunk(L.linear(p["up"], h), 2, dim=-1)        # [B,S,di]
-    q = L.linear(p["wq"], u).reshape(B, S, H, dqk_h).float()
+    q = L.reshape(L.linear(p["wq"], u), B, S, H, dqk_h).float()
     # a numpy scalar is a float32 array to the reference: k is float32
-    k = L.linear(p["wk"], u).reshape(B, S, H, dqk_h).float() \
+    k = L.reshape(L.linear(p["wk"], u), B, S, H, dqk_h).float() \
         / float(np.sqrt(dqk_h))
-    v = L.linear(p["wv"], u).reshape(B, S, H, dv_h).float()
-    gts = L.linear(p["gates"], u).float().reshape(B, S, 2, H)
+    v = L.reshape(L.linear(p["wv"], u), B, S, H, dv_h).float()
+    gts = L.reshape(L.linear(p["gates"], u).float(), B, S, 2, H)
     ig = torch.sigmoid(gts[:, :, 0])                             # [B,S,H]
     fg = torch.sigmoid(gts[:, :, 1] + 4.0)             # forget bias -> ~1
     n_chunks = max(1, S // MLSTM_CHUNK) if S % MLSTM_CHUNK == 0 else 1
@@ -397,7 +420,7 @@ def _mlstm_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
         C = f_tot[:, :, None, None] * C + torch.einsum(
             "bshd,bshe->bhde", ki * w[..., None], vi)
         outs.append((o_intra + o_inter).to(x.dtype))
-    o = torch.cat(outs, dim=1).reshape(B, S, di)
+    o = L.reshape(torch.cat(outs, dim=1), B, S, di)
     o = L.rmsnorm(p["ln"], o, cfg.norm_eps)
     o = o * F.silu(z.float()).to(x.dtype)
     out = x + L.linear(p["down"], o)
@@ -410,16 +433,16 @@ def _mlstm_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
     dqk_h, dv_h = dqk // H, di // H
     h = L.rmsnorm(p["norm1"], x_t, cfg.norm_eps)
     u, z = torch.chunk(L.linear(p["up"], h)[:, 0], 2, dim=-1)
-    q = L.linear(p["wq"], u).reshape(B, H, dqk_h).float()
-    k = L.linear(p["wk"], u).reshape(B, H, dqk_h).float() \
+    q = L.reshape(L.linear(p["wq"], u), B, H, dqk_h).float()
+    k = L.reshape(L.linear(p["wk"], u), B, H, dqk_h).float() \
         / float(np.sqrt(dqk_h))
-    v = L.linear(p["wv"], u).reshape(B, H, dv_h).float()
-    gts = L.linear(p["gates"], u).float().reshape(B, 2, H)
+    v = L.reshape(L.linear(p["wv"], u), B, H, dv_h).float()
+    gts = L.reshape(L.linear(p["gates"], u).float(), B, 2, H)
     ig = torch.sigmoid(gts[:, 0])
     fg = torch.sigmoid(gts[:, 1] + 4.0)
     C = fg[..., None, None] * cache["C"] \
         + ig[..., None, None] * torch.einsum("bhd,bhe->bhde", k, v)
-    o = torch.einsum("bhd,bhde->bhe", q, C).reshape(B, di)
+    o = L.reshape(torch.einsum("bhd,bhde->bhe", q, C), B, di)
     o = L.rmsnorm(p["ln"], o.to(x_t.dtype), cfg.norm_eps)
     o = o * F.silu(z.float()).to(x_t.dtype)
     out = x_t + L.linear(p["down"], o)[:, None]
@@ -427,7 +450,7 @@ def _mlstm_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
 
 
 def _slstm_cell(p: Dict, wx_t: torch.Tensor, h_prev, c_prev, dtype):
-    pre = wx_t + (h_prev.to(dtype) @ p["wr"]["w"]).float()
+    pre = wx_t + L.matmul(h_prev.to(dtype), p["wr"]["w"]).float()
     i, f, zg, o = torch.chunk(pre, 4, dim=-1)
     c = torch.sigmoid(f + 2.0) * c_prev + torch.sigmoid(i) * torch.tanh(zg)
     return torch.sigmoid(o) * torch.tanh(c), c
@@ -491,17 +514,17 @@ def _mla_decode(params: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
     q = L.linear(params["wuq"], L.rmsnorm(params["q_norm"],
                                           L.linear(params["wdq"], h),
                                           cfg.norm_eps))
-    q_nope, q_rope = torch.split(q.reshape(B, 1, H, nope + rope),
+    q_nope, q_rope = torch.split(L.reshape(q, B, 1, H, nope + rope),
                                  [nope, rope], dim=-1)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     c_t, krope_t = torch.split(L.linear(params["wdkv"], h), [r, rope],
                                dim=-1)
     c_t = L.rmsnorm(params["kv_norm"], c_t, cfg.norm_eps)
-    krope_t = L.apply_rope(krope_t.reshape(B, 1, 1, rope), positions,
+    krope_t = L.apply_rope(L.reshape(krope_t, B, 1, 1, rope), positions,
                            cfg.rope_theta)
     ckv_tail, krope_tail = attn.cache_update(
         cache["ckv_tail"], cache["krope_tail"], c_t, krope_t, tpos)
-    wukv = params["wukv"]["w"].reshape(r, H, nope + m.v_head_dim)
+    wukv = L.reshape(params["wukv"]["w"], r, H, nope + m.v_head_dim)
     w_uk, w_uv = wukv[..., :nope], wukv[..., nope:]          # [r,H,*]
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
     scale = attn.scale_of(nope + rope)
@@ -511,7 +534,7 @@ def _mla_decode(params: Dict, cfg: ArchConfig, h: torch.Tensor, cache: Dict,
         s = (L.einsum_f32("bqhr,bsr->bhqs", q_lat.to(ckv_seg.dtype), ckv_seg)
              + L.einsum_f32("bqhn,bsxn->bhqs", q_rope.to(krope_seg.dtype),
                             krope_seg[:, :, 0:1]))
-        s = s * scale
+        s = L.shard_hint(s * scale, "__dp__", None, None, "model")
         valid = attn.valid_positions(S, length, h.device)
         s = s.masked_fill(~valid[:, None, None, :], attn.NEG_INF)
         mm = torch.amax(s, dim=-1)
@@ -542,11 +565,11 @@ def block_decode(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
         tpos = torch.clamp_min(pos - plen, 0) % KV_TAIL
         if cfg.mla is not None:
             o, cache = _mla_decode(params, cfg, h, cache, positions, tpos)
-            x_t = x_t + L.linear(params["wo"], o.reshape(B, 1, -1))
+            x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, -1))
         else:
-            q = L.linear(params["wq"], h).reshape(B, 1, H, hd)
-            k = L.linear(params["wk"], h).reshape(B, 1, Hk, hd)
-            v = L.linear(params["wv"], h).reshape(B, 1, Hk, hd)
+            q = L.reshape(L.linear(params["wq"], h), B, 1, H, hd)
+            k = L.reshape(L.linear(params["wk"], h), B, 1, Hk, hd)
+            v = L.reshape(L.linear(params["wv"], h), B, 1, Hk, hd)
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
             S = cache["k"].shape[1]
@@ -558,16 +581,16 @@ def block_decode(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
                                               torch.clamp_max(plen, S))
             tail = attn.decode_attention_stats(q, kt, vt, tpos + 1)
             o = attn.merge_attention([pre, tail], x_t.dtype)
-            x_t = x_t + L.linear(params["wo"], o.reshape(B, 1, H * hd))
+            x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, H * hd))
             cache = dict(cache, k_tail=kt, v_tail=vt)
         if kind == "xattn" and "xk" in cache:
             hx = L.rmsnorm(params["x_norm"], x_t, cfg.norm_eps)
-            qx = L.linear(params["x_wq"], hx).reshape(B, 1, H, hd)
+            qx = L.reshape(L.linear(params["x_wq"], hx), B, 1, H, hd)
             ox = attn.decode_attention(qx, cache["xk"], cache["xv"],
                                        cache["xk"].shape[1])
             gate = torch.tanh(params["x_gate"].float()).to(x_t.dtype)
             x_t = x_t + gate * L.linear(params["x_wo"],
-                                        ox.reshape(B, 1, H * hd))
+                                        L.reshape(ox, B, 1, H * hd))
     elif kind == "mamba":
         x_t, cache = _mamba_decode(params, cfg, x_t, cache)
     elif kind == "mlstm":

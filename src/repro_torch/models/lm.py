@@ -141,8 +141,10 @@ def _head_w(params, cfg) -> torch.Tensor:
 def _head(params, cfg, x):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ _head_w(params, cfg)
-    return L.linear(params["lm_head"], x)
+        logits = L.matmul(x, _head_w(params, cfg))
+    else:
+        logits = L.linear(params["lm_head"], x)
+    return L.shard_hint(logits, "__dp__", None, "model")
 
 
 # ------------------------------------------------------------------ forward
@@ -162,6 +164,9 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     per_period = []
     for i in range(n_periods):
+        # batch over the data axes, sequence over "model" at each period's
+        # start (the reference's re-pinned scan carry)
+        x = L.shard_hint(x, "__dp__", "model", None)
         caches = {}
         for j, (kind, moe_on) in enumerate(slots):
             x, c = blk.block_apply(_period(params["blocks"][f"p{j}"], i), cfg,
@@ -185,7 +190,8 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 def _chunk_ce_sum(x: torch.Tensor, labels: torch.Tensor,
                   head_w: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of one sequence chunk."""
-    return torch.sum(L.token_losses(x @ head_w, labels))
+    logits = L.shard_hint(L.matmul(x, head_w), "__dp__", None, "model")
+    return torch.sum(L.token_losses(logits, labels))
 
 
 def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -200,7 +206,11 @@ def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = forward(params, cfg, tokens, ctx, return_hidden=True)
     head_w = _head_w(params, cfg)
     if S % ce_chunk or S <= ce_chunk:
-        return L.cross_entropy(x @ head_w, labels)
+        return L.cross_entropy(
+            L.shard_hint(L.matmul(x, head_w), "__dp__", None, "model"),
+            labels)
+    # chunks are slices of the sequence: on a mesh, gathered first
+    x = L.shard_hint(x, "__dp__", None, None)
     total = 0.0
     for i in range(S // ce_chunk):
         sl = slice(i * ce_chunk, (i + 1) * ce_chunk)

@@ -1,10 +1,15 @@
 """LM trainer (port of ``repro.optim.trainer``): AdamW with global-norm
 clipping, a warmup + cosine schedule and microbatch accumulation.
 
-The reference shards its optimizer state over a mesh; the port trains on
-one device (ROADMAP A11), so the state is plain tensors there, and a step
-updates the parameters and the moments in place (the reference's numbers;
-one copy of the state, where a functional update would hold two).
+A step updates the parameters and the moments in place (the reference's
+numbers; one copy of the state, where a functional update would hold
+two).  On a mesh the parameters are DTensors: the moments take each
+parameter's placements (the reference shards them by the same rules, so
+the Adam state is fully FSDP'd), the update runs on the local shards, the
+global-norm clip sums over the whole sharded tree, and a ``Shard(0)``
+batch is split into microbatches by global rows, as the reference's
+reshape splits it.  Run it inside ``repro_torch.launch.mesh.mesh_context``
+then (the step count and the schedule stay plain tensors, replicated).
 """
 from __future__ import annotations
 
@@ -49,9 +54,11 @@ def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def create_state(params: Any) -> TrainState:
-    """Zero float32 Adam moments, whatever the parameters' type."""
+    """Zero float32 Adam moments, whatever the parameters' type, each with
+    its parameter's placements when the parameters are DTensors."""
     dev = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
     opt = AdamState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     t=torch.zeros((), dtype=torch.int32, device=dev))
     return TrainState(params=params, opt=opt,
@@ -87,8 +94,8 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
             parts = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
                      for k, v in batch.items()}
             loss = 0.0
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             for i in range(n):
                 mb = {k: v[i] for k, v in parts.items()}
                 l_i, g_i = _value_and_grad(loss_fn, state.params, mb)

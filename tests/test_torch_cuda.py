@@ -12,7 +12,11 @@ fingerprinting as the W=1 campaign, ``fused_mlp`` at the index
 surrogate's serving widths and the recommender on the card against the
 CPU, and the two backward kernels (``flash_attention_backward``,
 ``ssm_scan_backward``) against autograd over the plain versions, bitwise
-repeatable, with the autograd Functions running both kernels.
+repeatable, with the operators' autograd running both kernels; the
+``torch.library`` operators on the card against the CPU (their fake
+implementations' shapes too) and on a DTensor mesh, two steps on a 1x1
+NCCL mesh against the one-device path, and a NCCL start that must
+fail.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1120,3 +1124,137 @@ def test_ssm_scan_autograd_runs_both_kernels(dev):
     for name, a_, b_, c_ in zip(("dt", "B", "C", "x", "A"), ins, plain,
                                 exact):
         _hold_fp32_gradient(a_.grad, b_.grad, c_.grad, name)
+
+
+# ------------------------------------------- the kernels' operators, meshes
+def _free_port():
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A 1x1 (data, model) mesh over a 1-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    mesh_mod.init_distributed("cuda", init_method="tcp://127.0.0.1:%d"
+                              % _free_port(), rank=0, world_size=1)
+    try:
+        yield mesh_mod.make_test_mesh(1, 1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_1x1_nccl_steps_match_one_device(nccl_mesh):
+    """Two steps of reduced SmolLM and Jamba (float32) through
+    ``train(mesh=...)`` on the card's 1x1 NCCL mesh: losses within rtol
+    1e-5 of the one-device path's, the same kernel launches."""
+    import dataclasses
+    from repro_torch.launch import train as train_mod
+    for arch in ("smollm-135m", "jamba-v0.1-52b"):
+        cfg = dataclasses.replace(get_reduced(arch), param_dtype="float32")
+        out = {}
+        for name, m in (("mesh", nccl_mesh), ("one", None)):
+            ops.reset_launch_counts()
+            _, losses = train_mod.train(arch, cfg=cfg, steps=2,
+                                        global_batch=4, seq_len=64,
+                                        device="cuda", mesh=m)
+            out[name] = (losses, ops.launch_counts())
+        np.testing.assert_allclose(out["mesh"][0], out["one"][0], rtol=1e-5)
+        assert out["mesh"][1] == out["one"][1], arch
+        assert out["mesh"][1]["flash_attention_backward"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_operator_on_card_matches_plain(dev, dtype):
+    """``repro_torch::flash_attention`` and its autograd formula on CUDA
+    tensors (the kernels) against the plain versions on the CPU copies;
+    its fake implementation gives the kernel's shapes and layout."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = _gen(dev, 5)
+    base = [torch.randn((2, 40, n, 64), generator=g, device=dev).to(dtype)
+            for n in (6, 2, 2)]
+    cuda_in = [t.clone().requires_grad_(True) for t in base]
+    cpu_in = [t.cpu().float().requires_grad_(True) for t in base]
+    ops.reset_launch_counts()
+    o = flash_attention.flash_attention(*(t.transpose(1, 2) for t in cuda_in))
+    o.float().square().sum().backward()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_backward"] == 1
+    o2 = flash_attention.flash_attention(*(t.transpose(1, 2) for t in cpu_in))
+    o2.square().sum().backward()
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else None
+    for a_, b_ in [(o, o2)] + [(x.grad, y.grad)
+                               for x, y in zip(cuda_in, cpu_in)]:
+        if tol:
+            torch.testing.assert_close(a_.float().cpu(), b_, **tol)
+        else:
+            assert _rel_err(a_.float().cpu(), b_) < 2e-2
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        q = torch.empty((2, 40, 6, 64), device="cuda").transpose(1, 2)
+        k = torch.empty((2, 2, 40, 64), device="cuda")
+        fo, lse = flash_attention.attention_op(q, k, k, True, 0, True)
+        assert fo.shape == q.shape and fo.stride() == q.stride()
+        assert lse.shape == (2, 6, 40) and lse.device.type == "cuda"
+
+
+def test_scan_operator_on_card_matches_plain(dev):
+    """``repro_torch::ssm_scan`` and its autograd formula on CUDA (the
+    kernels) against the plain versions on the CPU; the fake
+    implementation's shapes, saved states included."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ins = _ssm_inputs(dev, 2, 200, 96, 16, 9)
+    cuda_in = [t.clone().requires_grad_(True) for t in ins]
+    cpu_in = [t.cpu().requires_grad_(True) for t in ins]
+    ops.reset_launch_counts()
+    y, h = ssm_scan.ssm_scan(*cuda_in)
+    (y.square().sum() + h.sum()).backward()
+    assert ops.launch_counts()["ssm_scan"] == 1
+    assert ops.launch_counts()["ssm_scan_backward"] == 1
+    y2, h2 = ssm_scan.ssm_scan(*cpu_in)
+    (y2.square().sum() + h2.sum()).backward()
+    torch.testing.assert_close(y.cpu(), y2, rtol=1e-4, atol=1e-4)
+    for a_, b_ in zip(cuda_in, cpu_in):
+        scale = float(b_.grad.abs().max())
+        torch.testing.assert_close(a_.grad.cpu(), b_.grad, rtol=1e-4,
+                                   atol=1e-5 * scale)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = [torch.empty(t.shape, device="cuda") for t in ins]
+        fy, fh, fc = ssm_scan.scan_op(*fake, None, True)
+        assert fy.shape == (2, 200, 96) and fh.shape == (2, 96, 16)
+        assert fc.shape == (2, 2, 96, 16)
+
+
+def test_operators_on_a_dtensor_mesh_launch_the_kernels(nccl_mesh):
+    """On DTensors of the card's 1x1 mesh the operators run the kernels on
+    the local tensors and keep the placements."""
+    from repro_torch.distributed import sharding as sh
+    g = _gen(torch.device("cuda"), 2)
+    q, k = (torch.randn((4, 8, 32, 64), generator=g, device="cuda")
+            for _ in range(2))
+    place = sh.placements(("data", "model", None, None), nccl_mesh)
+    dq, dk = (sh.local_shard(t, nccl_mesh, place) for t in (q, k))
+    ops.reset_launch_counts()
+    o = flash_attention.flash_attention(dq, dk, dk)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert tuple(o.placements) == tuple(place)
+    torch.testing.assert_close(o.full_tensor(),
+                               flash_attention.flash_attention(q, k, k))
+
+
+def test_failed_nccl_start_raises(dev):
+    """A NCCL group whose second rank never comes raises within its
+    timeout (no gloo fallback)."""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from repro_torch.launch import mesh\n"
+            "mesh.init_distributed('cuda', init_method='tcp://127.0.0.1:%d',"
+            " rank=0, world_size=2, timeout=5)\n") % (src, _free_port())
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0

@@ -46,6 +46,9 @@ PORTED = ("repro_torch.checkpoint.manager", "repro_torch.core.fsutil",
           "repro_torch.launch.recommend", "repro_torch.models.cost_model",
           "repro_torch.campaign.transfer", "repro_torch.data.pipeline",
           "repro_torch.optim.trainer", "repro_torch.launch.train",
+          "repro_torch.launch.mesh", "repro_torch.launch.shapes",
+          "repro_torch.launch.steps", "repro_torch.launch.hlo_analysis",
+          "repro_torch.launch.dryrun", "repro_torch.distributed.compression",
           *(f"repro_torch.configs.{m}" for m in (
               "smollm_135m", "qwen1_5_110b", "qwen2_72b", "mixtral_8x7b",
               "llama4_maverick_400b_a17b", "minicpm3_4b",
