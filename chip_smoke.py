@@ -63,7 +63,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      ungated engine; a profile of 12 dispatches;
   6. the campaign path: the paper's grid (Llama 3.1 8B and SmolVLM, both
      modes, all 7 nodes: 28 cells in 4 mixed-node batches of 7 x 64 lanes,
-     4,613 episodes per cell, default gate, checkpoint every 8 dispatches)
+     2,048 episodes per cell, default gate, checkpoint every 8 dispatches)
      through ``python -m repro_torch.launch.dse --campaign`` on ``cuda``,
      with the launch counts read around it (``sumtree`` and ``fused_mlp``
      must launch); each cell's best design re-evaluated on the CPU; a
@@ -87,7 +87,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   9. the scenario path: ``SCEN_GRID`` (Mixtral 8x7B at full width, nodes 3,
      7 and 28, both modes, dtypes native and fp8, phases decode and
      prefill, the default SLOs: 24 cells in 8 batches of 3 x 64 lanes,
-     2,048 episodes) through ``python -m repro_torch.launch.dse
+     1,024 episodes) through ``python -m repro_torch.launch.dse
      --campaign`` with the launch counts read around it; where a cell found
      designs, its pick, ``ttft_ms`` and ``slo_ok`` recomputed on the CPU
      from its stored frontier by the plain evaluator; the same grid at 512
@@ -139,7 +139,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      thread (a POST of 128 queries, ``/healthz``, ``/metrics``, a
      malformed body's structured 400); (b) ``TRANSFER_GRID`` (SmolLM 135M
      at full width, seq 2048, batch 3, both modes, all 7 nodes: 14 cells
-     in 2 batches of 7 x 64 lanes, 4,613 episodes) through ``python -m
+     in 2 batches of 7 x 64 lanes, 1,024 episodes) through ``python -m
      repro_torch.launch.dse --campaign --transfer-from`` with the launch
      counts read around it (``actor_moe``, ``sumtree``, ``sumtree_sample``
      and ``fused_mlp`` must launch); its priorities, donors and ``cost_w``
@@ -169,15 +169,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      attention's three), and (attention, in bf16, fp16 and fp32 at
      SmolLM's shape and bf16 at Jamba's) SDPA's backward; (b) SmolLM-135M
      at full width through ``repro_torch.launch.train`` (bf16, B = 8, S =
-     1,024, ``TRAIN_STEPS`` steps): the loss falls, steps/s, tokens/s and
-     the attention launches; one more step under ``torch.profiler``: the
+     1,024, ``TRAIN_STEPS`` steps): the loss falls, steps/s, tokens/s,
+     peak memory and the attention launches (each period rematerialised,
+     so the forward kernel twice a step a layer and the backward once,
+     ``train_launches``); one more step under ``torch.profiler``: the
      top device ops, the attention backward's share of device time and the
      device idle share; kill/resume over 6 steps (3, a stop, 3
      resumed) within rtol 1e-6 of a straight run, bitwise or not printed;
+     2 steps against 2 with the checkpoints patched out, losses and
+     weights bitwise, both peaks printed;
      (c) Jamba at full width with 2 layers (attention + dense FFN, Mamba +
-     16-expert MoE; 3.7 B parameters), 5 steps of 2 x 512, both scan
-     kernels once a step; (d) one step of every reduced config in float32
-     on the card against the same step on the CPU (loss within 1e-4); (e)
+     16-expert MoE; 3.7 B parameters), 5 steps of 2 x 512, both forward
+     kernels twice a step and both backward kernels once; (d) one step of
+     every reduced config in float32 on the card against the same step on
+     the CPU (loss within 1e-4); (e)
      ``ZOO_RUNS`` through ``serve.inputs`` + ``generate``: MiniCPM3-4B and
      Whisper medium and xLSTM 1.3B whole, Llama 3.2 Vision at full width
      with one period (5 layers, 4,096 context tokens), prefill ms, decode
@@ -199,9 +204,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      with the same arguments (losses within rtol 1e-5, bitwise or not
      printed; the same ``flash_attention`` and backward launches); (b)
      Jamba at full width with 2 of 32 layers, 2 steps of 2 x 512 on the
-     mesh against phase 13 (c)'s first two losses (rtol 1e-5), both scan
-     kernels launched, peak memory printed; (d) ``compressed_psum`` on the
-     1-rank NCCL group against the same on a gloo group of the CPU
+     mesh against phase 13 (c)'s first two losses (rtol 1e-5), the
+     launches of ``train_launches``, peak memory printed; (d)
+     ``compressed_psum`` on the 1-rank NCCL group against the same on a
+     gloo group of the CPU
      (bitwise); then each dry-run record (:func:`finish_dryruns`): peak
      bytes, flops and wire bytes a device, flops beside
      ``model_flops_analytic`` over the 256 devices;
@@ -249,11 +255,13 @@ EPISODES, N_ENVS, NODE, SEED = 4613, 64, 3, 0
 # enough that the first calibration opens it, so that screen_score runs.
 GATE_THRESHOLD = 1e3
 # the campaign path: the paper's grid at full widths (campaign runs go to
-# the git-ignored experiments/campaigns/)
+# the git-ignored experiments/campaigns/), 2,048 episodes a cell, cut from
+# the paper's 4,613 to keep the script inside its limit on a slow host
+# (phase 11's W = 2 fleet runs the grid again, phase 12 reads its archives)
 CAMPAIGN_ROOT = os.path.join(ROOT, "experiments", "campaigns", "chip_smoke")
 GRID = dict(name="paper-grid", workloads=["llama3.1-8b", "smolvlm"],
             nodes=[3, 5, 7, 10, 14, 22, 28], modes=["high_perf", "low_power"],
-            episodes=4613, lanes=64, max_envs=448, seed=0, seq_len=2048,
+            episodes=2048, lanes=64, max_envs=448, seed=0, seq_len=2048,
             batch=3, checkpoint_every=8)
 # high_perf first: batch 0, where the kill lands, finds feasible designs at
 # this budget (no low-power cell does), so the resumed frontiers compared
@@ -266,12 +274,14 @@ SUMTREE_CAP = 100_000
 # phase 12: the mixed query batch answered over phase 6's run directory,
 # the sequential calls timed beside it, and the transfer target: SmolLM
 # 135M at full width, a workload the donor grid lacks, in phase 6's batch
-# shape (2 batches of 7 x 64 lanes)
+# shape (2 batches of 7 x 64 lanes), 1,024 episodes a cell (cut from 4,613
+# when rematerialised training lengthened phase 13 and the dry-run beside
+# phases 8-13: its three runs of the grid took 166 s of the script)
 SERVE_QUERIES = 4096
 SERVE_SEQUENTIAL = 256
 TRANSFER_GRID = dict(name="transfer-grid", workloads=["smollm-135m"],
                      nodes=[3, 5, 7, 10, 14, 22, 28],
-                     modes=["high_perf", "low_power"], episodes=4613,
+                     modes=["high_perf", "low_power"], episodes=1024,
                      lanes=64, max_envs=448, seed=0, seq_len=2048, batch=3,
                      checkpoint_every=8)
 # phase 11: the traced single cell's checkpoint period (3 checkpoints in
@@ -282,13 +292,13 @@ SEARCH_KERNELS = ("actor_moe", "screen_score", "sumtree", "sumtree_sample",
                   "fused_mlp")
 # the scenario grid: the paper's prefill/decode x dtype axes for Mixtral 8x7B
 # at full width with SLO-aware selection (the default SLOs, set in main());
-# 3 cells a batch, so 8 batches of 3 x 64 lanes; 2,048 episodes, cut from
-# 4,613 so that the whole script with phase 12 stays near its earlier
-# length (no cell found a design at 4,613 either)
+# 3 cells a batch, so 8 batches of 3 x 64 lanes; 1,024 episodes, cut from
+# 4,613 so that the whole script with phases 12 and 13 stays near its
+# earlier length (no cell found a design at 4,613 or 2,048 either)
 SCEN_GRID = dict(name="scenario-grid", workloads=["mixtral-8x7b"],
                  nodes=[3, 7, 28], modes=["high_perf", "low_power"],
                  dtypes=["native", "fp8"], phases=["decode", "prefill"],
-                 episodes=2048, lanes=64, max_envs=192, seed=0, seq_len=2048,
+                 episodes=1024, lanes=64, max_envs=192, seed=0, seq_len=2048,
                  batch=3, checkpoint_every=8)
 # Mixtral's 93.4 GB of weights (46.7 GB in fp8) fit almost no design of the
 # space (2 of 20,000 random designs feasible, all fp8 decode at 3 nm), so
@@ -304,8 +314,8 @@ SCALAR_EPISODES = 512
 # logits tolerance as a share of max |logit|, or None for a printed
 # reading).  Llama 3.1 8B fits whole (16 GB in fp16); Jamba's 32 layers
 # (104 GB in bf16) do not, so it runs one period: 8 layers, 1 attention +
-# 7 Mamba, 4 of them MoE (26.5 GB in bf16, 53 GB in float32).  512 + 128 =
-# 640 = 10 x KV_TAIL cache positions: one tail flush.  The bf16 Jamba's
+# 7 Mamba, 4 of them MoE (26.5 GB in bf16, 53 GB in float32).  72 tokens
+# (71 decode steps) take one tail flush, at step 64.  The bf16 Jamba's
 # gap between the two paths is printed, not held: bf16 keeps 3 bits fewer
 # than fp16, and no bound was set for it between a sound reading and a
 # faulty one.  Jamba's kernels are held by the float32 run d at 1e-4 with
@@ -313,13 +323,13 @@ SCALAR_EPISODES = 512
 # bf16) do not fit either: run e keeps 8 (23.7 GB), run f 4 in float32
 # (24 GB); their 4,608-token prompt outruns the 4,096-token window.
 LM_RUNS = (
-    ("a", "llama3.1-8b", {}, 4, 512, 128, 2e-2),
-    ("b", "jamba-v0.1-52b", dict(n_layers=8), 4, 512, 128, None),
+    ("a", "llama3.1-8b", {}, 4, 512, 72, 2e-2),
+    ("b", "jamba-v0.1-52b", dict(n_layers=8), 4, 512, 72, None),
     ("c", "llama3.1-8b", dict(n_layers=2, param_dtype="float32"), 4, 512,
      32, 1e-4),
     ("d", "jamba-v0.1-52b", dict(n_layers=8, param_dtype="float32"), 4, 512,
      32, 1e-4),
-    ("e", "mixtral-8x7b", dict(n_layers=8), 1, 4608, 128, None),
+    ("e", "mixtral-8x7b", dict(n_layers=8), 1, 4608, 72, None),
     ("f", "mixtral-8x7b", dict(n_layers=4, param_dtype="float32"), 1, 4608,
      32, 1e-4),
 )
@@ -1255,6 +1265,22 @@ ZOO_RUNS = (("minicpm3", "minicpm3-4b", {}, 4, 512, 32),
             ("vision", "llama-3.2-vision-90b", dict(n_layers=5), 2, 512, 32))
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` one-device training steps of
+    ``cfg``, from its period layout (``lm._layout``): each attention and
+    Mamba layer launches its forward kernel twice a step, in the forward
+    and again where the backward recomputes its period (``layers.remat``,
+    the reference's ``jax.checkpoint``), and its backward kernel once."""
+    from repro_torch.models import lm
+    _, n_periods, slots = lm._layout(cfg)
+    n = {k: n_periods * sum(kind == k for kind, _ in slots)
+         for k in ("attn", "mamba")}
+    return {"flash_attention": 2 * steps * n["attn"],
+            "flash_attention_backward": steps * n["attn"],
+            "ssm_scan": 2 * steps * n["mamba"],
+            "ssm_scan_backward": steps * n["mamba"]}
+
+
 def attention_bwd_work(B, H, Hk, Sq, Sk, hd, causal, window, elt) -> tuple:
     """FLOPs and bytes of one ``flash_attention_backward`` call: per
     visible pair the recomputed q.k and the products for dV, dP, dQ and dK
@@ -1404,6 +1430,7 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
     from repro_torch.launch import serve, train as train_mod
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import lm
     from repro_torch.optim import trainer
     from repro_torch.optim.adam import tree_leaves, tree_map
@@ -1578,14 +1605,15 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
         f"flash_attention {train_counts['flash_attention']} "
         f"flash_attention_backward "
         f"{train_counts['flash_attention_backward']}; peak_mem_gb "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} (before remat: "
+        f"4.70-6.39 steps/s, peak 14.092 GB)")
     if not (np.isfinite(losses).all() and first > last):
         fail("train smollm-135m: the loss did not fall")
-    n_layers = get_config("smollm-135m").n_layers
+    want = train_launches(get_config("smollm-135m"), steps)
     for name in ("flash_attention", "flash_attention_backward"):
-        if train_counts[name] != steps * n_layers:
+        if train_counts[name] != want[name]:
             fail(f"train smollm-135m: {name} launched {train_counts[name]} "
-                 f"times, not {steps * n_layers}")
+                 f"times, not {want[name]}")
     profile_train_step(state, steps)
     del state
     # kill/resume: 6 steps straight against 3, a stop, and 3 resumed
@@ -1615,6 +1643,30 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
              "one")
     del full, resumed, pairs
     subprocess.run(["rm", "-rf", ckpt_root], check=False)
+    # the recomputation through the kernels: 2 steps with the periods and
+    # the loss chunks rematerialised against 2 with the checkpoints patched
+    # out (layers.checkpoint a plain call), losses and weights bitwise
+    kw = dict(reduced=False, steps=2, global_batch=TRAIN_B, seq_len=TRAIN_S,
+              log_every=1, device="cuda")
+    runs = {}
+    for label, how in (("remat", layers_mod.checkpoint),
+                       ("no remat", lambda f, *a, **k: f(*a))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with mock_.patch.object(layers_mod, "checkpoint", how):
+            runs[label] = train_mod.train("smollm-135m", **kw)
+        runs[label] += (torch.cuda.max_memory_allocated() / 1e9,)
+    (a_, l_r, peak_r), (b_, l_n, peak_n) = runs["remat"], runs["no remat"]
+    bitwise = l_r == l_n and all(
+        torch.equal(x_, y_) for (_, x_), (_, y_) in zip(
+            ckpt._leaves_with_names(a_), ckpt._leaves_with_names(b_)))
+    log(f"train remat smollm-135m: 2 steps, losses {l_r} against {l_n} "
+        f"with the checkpoints patched out; losses and weights bitwise "
+        f"{bitwise}; peak_mem_gb {peak_r:.3f} against {peak_n:.3f}")
+    if not bitwise:
+        fail("train remat: the rematerialised steps differ from the steps "
+             "without it")
+    del a_, b_, runs
     train_counts = {k: train_counts[k] + v
                     for k, v in ops.launch_counts().items()}
 
@@ -1653,15 +1705,15 @@ def lm_training_zoo(dev, timings, errs, steps=TRAIN_STEPS,
         f"; launches ssm_scan {counts['ssm_scan']} ssm_scan_backward "
         f"{counts['ssm_scan_backward']} flash_attention "
         f"{counts['flash_attention']}; parameters moved {moved}; peak_mem_gb "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} (before remat: "
+        f"60.550 GB)")
     if not (np.isfinite(losses).all() and all(m > 0 for m in moved.values())):
         fail("train jamba: a loss is not finite or the parameters stayed")
     JAMBA_LOSSES[:] = losses           # phase 15 (b) is held against them
-    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
-                 "flash_attention_backward"):
-        if counts[name] != JAMBA_STEPS:
+    for name, n in train_launches(cfg, JAMBA_STEPS).items():
+        if counts[name] != n:
             fail(f"train jamba: {name} launched {counts[name]} times, not "
-                 f"{JAMBA_STEPS}")
+                 f"{n}")
     train_counts = {k: train_counts[k] + v for k, v in counts.items()}
 
     # (d) one step on every reduced config (float32) on the card, and the
@@ -1860,7 +1912,8 @@ def sharded_training(dev, card: str) -> dict:
     one_losses, one_counts = run("one device smollm-135m", **kw)
     rel = np.abs(np.subtract(mesh_losses, one_losses)) / np.abs(one_losses)
     log(f"smollm-135m mesh 1x1 against one device: losses max rel "
-        f"{rel.max():.3e}, bitwise {mesh_losses == one_losses}")
+        f"{rel.max():.3e}, bitwise {mesh_losses == one_losses} (before "
+        f"remat: peak 14.364 GB on the mesh, 14.085 on one device)")
     if not (np.isfinite(mesh_losses).all() and rel.max() <= 1e-5):
         fail("mesh 1x1: SmolLM's losses differ from the one-device run's")
     for name in ("flash_attention", "flash_attention_backward"):
@@ -1880,10 +1933,10 @@ def sharded_training(dev, card: str) -> dict:
         f"{want}, max rel {rel.max():.3e}")
     if not rel.max() <= 1e-5:
         fail("mesh 1x1: Jamba's losses differ from phase 13 (c)'s")
-    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
-                 "flash_attention_backward"):
-        if counts[name] != MESH_JAMBA_STEPS:
-            fail(f"mesh 1x1 jamba: {name} launched {counts[name]} times")
+    for name, n in train_launches(cfg, MESH_JAMBA_STEPS).items():
+        if counts[name] != n:
+            fail(f"mesh 1x1 jamba: {name} launched {counts[name]} times, "
+                 f"not {n}")
     mesh_counts = {k: mesh_counts[k] + v for k, v in counts.items()}
 
     # (d) compressed_psum on the 1-rank NCCL group, against the same on a
@@ -1949,6 +2002,10 @@ def finish_dryruns(runs: list, card: str, out_dir: str) -> None:
             f"extrapolated from periods {rec.get('extrapolated_from_periods')}")
         if rec["status"] != "OK":
             fail(f"dry-run {label}: status {rec['status']}")
+        if not (mem["peak_bytes"] >= mem["argument_bytes"] > 0
+                and flops > 0):
+            fail(f"dry-run {label}: a peak below the arguments' bytes or no "
+                 "flops")
 
 
 def phase_mark(n: int, name: str, _t0=time.time()) -> None:

@@ -291,21 +291,25 @@ def trace_depth(cfg, shape: str, mesh, device="cuda",
     rest by a few gathers, hence 2 and 3): the counterpart of the
     reference's trip-count correction of a scanned body, where an eager
     trace of Mixtral's 32 layers x 128 MoE token groups would run some
-    10^6 DTensor operators.  Where this torch version does not let
-    :func:`dtensor_bookkeeping_off_the_trace` move DTensor's shape
-    propagation off the trace, a first trace of one period runs and is
-    dropped, so that the propagation (once an operator, then cached) is
-    not counted as the device's work."""
+    10^6 DTensor operators.  A first trace of one period runs and is
+    dropped before the two depths, and before a whole trace where this
+    torch version does not let :func:`dtensor_bookkeeping_off_the_trace`
+    move DTensor's shape propagation off the trace, so that what a
+    process builds once (the propagation, once an operator, then cached)
+    is not counted as the device's work: carried from 2 and 3 periods,
+    it would count some 30-fold at Mixtral's depth (the first trace's
+    peak reads 4.5 GB high at full width on torch 2.11)."""
     from repro_torch.models.lm import period_of
     from torch.distributed.tensor import _sharding_prop
     p = period_of(cfg)
     at = lambda k: trace_cell(dataclasses.replace(cfg, n_layers=k * p),
                               shape, mesh, device)
-    if not hasattr(_sharding_prop.ShardingPropagator,
-                   "_propagate_tensor_meta_non_cached"):
-        at(1)
     n = cfg.n_layers // p
-    if not extrapolate or n <= 3:
+    extrapolate = extrapolate and n > 3
+    if extrapolate or not hasattr(_sharding_prop.ShardingPropagator,
+                                  "_propagate_tensor_meta_non_cached"):
+        at(1)
+    if not extrapolate:
         return trace_cell(cfg, shape, mesh, device)
     a, b = at(2), at(3)
     out = dict(a, memory=_extrapolate(a["memory"], b["memory"], n),
@@ -328,6 +332,15 @@ def init_fake_group(world_size: int) -> None:
         if dist.get_world_size() == world_size:
             return
         dist.destroy_process_group()
+    # DTensor caches its sharding plans by mesh shape and axis names, which
+    # a new group's meshes share with an earlier group's: cleared, so that
+    # no cached plan hands out a mesh whose groups are gone
+    for clear in (getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None),
+                  getattr(DTensor._op_dispatcher.sharding_propagator
+                          .propagate_op_sharding, "cache_clear", None)):
+        if clear is not None:
+            clear()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
 

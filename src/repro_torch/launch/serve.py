@@ -63,8 +63,11 @@ def generate(params, cfg: ArchConfig, prompts: torch.Tensor,
              ) -> Generation:
     """Prefill ``prompts`` [B, S], then ``gen_tokens - 1`` greedy decode
     steps over a cache of S + gen_tokens positions, merging the ring tails
-    every ``KV_TAIL`` steps.  The clocks are read only after the device
-    finished the work they time."""
+    every ``KV_TAIL`` steps (a window shorter than the tail is refused
+    before the prefill when a merge would come).  The clocks are read only
+    after the device finished the work they time."""
+    if gen_tokens - 1 >= KV_TAIL:
+        lm.check_flushable(cfg)
     dev = prompts.device
     B, prompt_len = prompts.shape
     _sync(dev)

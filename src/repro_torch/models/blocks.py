@@ -229,12 +229,15 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     slots = torch.arange(cap, device=h.device, dtype=torch.float32)
     # on a mesh: the experts' FSDP shards gathered once for all the groups,
     # and the tokens split by batch rows only, so that a group is a slice
-    p = dict(p, **{k: L.gather_fsdp(p[k]) for k in ("e_gate", "e_up",
-                                                    "e_down") if k in p})
+    experts = [L.gather_fsdp(p[k]) for k in ("e_gate", "e_up", "e_down")
+               if k in p]
     h = L.shard_hint(h, "__dp__", None, None)
 
-    def group_fn(hgrp):
-        """hgrp: [B, g, d] -> [B, g, d] (router recomputed in-group)."""
+    def group_fn(hgrp, *experts):
+        """hgrp: [B, g, d] -> [B, g, d] (router recomputed in-group); the
+        experts come as arguments, not from the closure, so that a
+        group's remat keeps no gathered weights across the forward."""
+        *gate, up, down = experts
         ht = L.reshape(hgrp, tg, d)
         gv, ix = _route(p, ht, m.top_k)
         onehot = F.one_hot(ix, m.n_experts).float()          # [t,k,e]
@@ -247,18 +250,28 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
         slot = (pos_k[..., None] == slots).float()           # [t,k,c]
         disp = torch.einsum("tke,tkc->tec", onehot * keep_k[..., None], slot)
         xe = torch.einsum("td,tec->ecd", ht.float(), disp).to(ht.dtype)
-        if "e_gate" in p:
-            z = L.swiglu(torch.einsum("ecd,edf->ecf", xe, p["e_gate"]),
-                         torch.einsum("ecd,edf->ecf", xe, p["e_up"]))
+        if gate:
+            z = L.swiglu(torch.einsum("ecd,edf->ecf", xe, gate[0]),
+                         torch.einsum("ecd,edf->ecf", xe, up))
         else:
-            z = L.gelu(torch.einsum("ecd,edf->ecf", xe, p["e_up"]))
-        ye = torch.einsum("ecf,efd->ecd", z, p["e_down"])
+            z = L.gelu(torch.einsum("ecd,edf->ecf", xe, up))
+        ye = torch.einsum("ecf,efd->ecd", z, down)
         comb = disp * torch.einsum("tk,tke->te", gv, onehot)[..., None]
         out = torch.einsum("ecd,tec->td", ye.float(), comb)
         return out.to(ht.dtype).reshape(B, g, d)
 
-    hg = h.reshape(B, n_groups, g, d)
-    out = torch.cat([group_fn(hg[:, i]) for i in range(n_groups)], dim=1)
+    if n_groups == 1:
+        out = group_fn(h, *experts)
+    else:
+        # one group's dispatch buffers live at a time in the backward (the
+        # reference's lax.map of a remat'd group_fn)
+        hg = h.reshape(B, n_groups, g, d)
+        out = torch.cat([L.remat(group_fn, hg[:, i], *experts)
+                         for i in range(n_groups)], dim=1)
+        # on a mesh the gradient comes back split along the sequence, which
+        # the cat's backward slices by group: re-laid out once here, not
+        # gathered whole for every group's slice
+        out = L.shard_hint(out, "__dp__", None, "model")
     if "s_up" in p:
         out = out + _shared_expert(p, ht).reshape(B, S, d)
     return out

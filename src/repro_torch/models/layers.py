@@ -17,7 +17,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._guards import active_fake_mode
 from torch.distributed.tensor import DTensor, Replicate
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import placements
 from repro_torch.launch.mesh import current_mesh
@@ -187,6 +189,19 @@ def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
     return w.redistribute(w.device_mesh, keep)
 
 
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward (the
+    reference's ``jax.checkpoint``): autograd keeps ``args`` and what
+    ``fn`` closes over, and runs ``fn`` again where its backward needs a
+    saved tensor.  A plain call where autograd records nothing.  Tensors
+    ``fn`` should not keep alive across the forward go in ``args``: the
+    recomputation of an enclosing ``remat`` makes them again."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def contiguous(x: torch.Tensor) -> torch.Tensor:
     """``x`` with a contiguous layout.  A DTensor's ``contiguous()`` reads
     its global strides, which need not be its local tensor's (a
@@ -260,7 +275,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [..., T, H, hd]; positions: [..., T] (int)."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    # a fake tensor made in a dry-run's trace stays out of the cache, which
+    # the real calls that follow in the same process read
+    freqs = (_rope_freqs_on if active_fake_mode() is None
+             else _rope_freqs_on.__wrapped__)(hd, float(theta), x.device)
     ang = positions[..., :, None].float() * freqs      # [..., T, hd/2]
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

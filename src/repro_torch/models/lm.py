@@ -12,7 +12,10 @@ Llama 3.2 Vision: 5 = 4 self + 1 cross; xLSTM: 8 = 7 mLSTM + 1 sLSTM),
 and each position-in-period's parameters are stacked over the periods.
 The reference's ``lax.scan`` over periods is a loop over the period
 index.  Whisper runs an encoder over the (stub) frame embeddings and gives
-every decoder layer a cross-attention block ("xattn" kinds).
+every decoder layer a cross-attention block ("xattn" kinds).  Under
+autograd each period, each encoder block and each cross-entropy chunk is
+rematerialised (``layers.remat``, the reference's ``jax.checkpoint``):
+the backward keeps their inputs and runs their forward again.
 
 Entry points:
   init_params(cfg, seed, device)                    -> params
@@ -30,7 +33,6 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig
@@ -116,11 +118,15 @@ def _encode_ctx(params: Dict, cfg: ArchConfig, ctx: torch.Tensor
                 ) -> torch.Tensor:
     """The Whisper encoder over stub frame embeddings (bidirectional)."""
     enc = params["enc"]
-    x = ctx + enc["pos"][None, :ctx.shape[1]]
-    for i in range(cfg.enc_layers):
+
+    def body(x, i):
         y, _ = blk.block_apply(_period(enc["blocks"], i), cfg, "attn", False,
                                x, causal=False)
-        x = y.to(x.dtype)
+        return y.to(x.dtype)
+
+    x = ctx + enc["pos"][None, :ctx.shape[1]]
+    for i in range(cfg.enc_layers):
+        x = L.remat(body, x, i)
     return L.rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
@@ -162,19 +168,22 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _embed_inputs(params, cfg, tokens, ctx)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+    def body(x, i):
+        caches = {}
+        for j, (kind, moe_on) in enumerate(slots):
+            x, caches[f"p{j}"] = blk.block_apply(
+                _period(params["blocks"][f"p{j}"], i), cfg, kind, moe_on, x,
+                ctx=ctx, positions=positions, collect_cache=collect_caches)
+        return x.to(dt), caches
+
     per_period = []
     for i in range(n_periods):
         # batch over the data axes, sequence over "model" at each period's
-        # start (the reference's re-pinned scan carry)
+        # start (the reference's re-pinned scan carry): pinned before the
+        # remat, so that the input it keeps is the sequence-split one
         x = L.shard_hint(x, "__dp__", "model", None)
-        caches = {}
-        for j, (kind, moe_on) in enumerate(slots):
-            x, c = blk.block_apply(_period(params["blocks"][f"p{j}"], i), cfg,
-                                   kind, moe_on, x, ctx=ctx,
-                                   positions=positions,
-                                   collect_cache=collect_caches)
-            caches[f"p{j}"] = c
-        x = x.to(dt)
+        x, caches = L.remat(body, x, i)
         per_period.append(caches)
     if return_hidden:
         out = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -214,8 +223,8 @@ def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     total = 0.0
     for i in range(S // ce_chunk):
         sl = slice(i * ce_chunk, (i + 1) * ce_chunk)
-        total = total + checkpoint(_chunk_ce_sum, x[:, sl], labels[:, sl],
-                                   head_w, use_reentrant=False)
+        total = total + L.remat(_chunk_ce_sum, x[:, sl], labels[:, sl],
+                                head_w)
     return total / (B * S)
 
 
@@ -276,12 +285,26 @@ def extend_caches(caches: Dict, cfg: ArchConfig, new_len: int) -> Dict:
     return out
 
 
+def check_flushable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a sliding window shorter than the ring tail:
+    its prefix cannot take a tail flush (the reference fails there too, in
+    the update slice)."""
+    if 0 < cfg.sliding_window < blk.KV_TAIL:
+        raise ValueError(
+            f"{cfg.name}: a sliding window of {cfg.sliding_window} is "
+            f"shorter than the ring tail (KV_TAIL = {blk.KV_TAIL}): its "
+            "cache cannot take a tail flush, so it decodes fewer than "
+            f"{blk.KV_TAIL} steps")
+
+
 def flush_tails(caches: Dict, cfg: ArchConfig) -> Dict:
     """Merge the full ring tails into the prefix at plen % S and advance
     plen by ``KV_TAIL``.  The serving loop calls this every KV_TAIL decode
     steps.  The write start is clamped so that the tail fits, as
     ``lax.dynamic_update_slice`` does (a prefix capacity that is a multiple
-    of KV_TAIL never needs it)."""
+    of KV_TAIL never needs it); a window shorter than the tail is refused
+    (:func:`check_flushable`)."""
+    check_flushable(cfg)
     out = {}
     for pj, c in caches.items():
         if "plen" not in c:

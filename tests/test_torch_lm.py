@@ -11,6 +11,7 @@ reduced Llama 3.1 8B, Jamba v0.1 and SmolVLM (with its prefix context).
   a router near-tie may flip an expert pick under bf16 rounding (the
   reference's bf16 run differs from its own float32 run that way)."""
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -288,3 +289,28 @@ def test_flush_tails_writes_the_tail_at_plen_and_advances_it():
     assert not out["k"][:, :, :32].any() and not out["v"].any()
     assert out["plen"].tolist() == [32 + blk.KV_TAIL] * tcfg.n_layers
     assert not caches["p0"]["k"].any()          # the input is not modified
+
+
+def test_a_window_shorter_than_the_tail_is_refused():
+    """A sliding window shorter than ``KV_TAIL`` cannot take a tail flush;
+    the reference's ``flush_tails`` fails there in its update slice.  The
+    port refuses with a ``ValueError`` naming the window and the tail:
+    ``generate`` before its prefill when a flush would come, and
+    ``flush_tails`` itself.  A run that stops short of the first flush
+    still serves (``_gen``, the tests above)."""
+    rcfg, tcfg, params, tparams, prompts, _ = _setup("mixtral-8x7b",
+                                                     "float32")
+    assert 0 < tcfg.sliding_window < blk.KV_TAIL
+    msg = (f"sliding window of {tcfg.sliding_window} .*KV_TAIL = "
+           f"{blk.KV_TAIL}")
+    with mock.patch.object(lm, "prefill", side_effect=AssertionError), \
+            pytest.raises(ValueError, match=msg):
+        generate(tparams, tcfg, torch.as_tensor(prompts).long(),
+                 blk.KV_TAIL + 1)
+    with torch.no_grad():
+        _, caches = lm.prefill(tparams, tcfg, torch.as_tensor(prompts).long())
+    with pytest.raises(ValueError, match=msg):
+        lm.flush_tails(lm.extend_caches(caches, tcfg, S + GEN), tcfg)
+    _, rc = ref_lm.prefill(params, rcfg, jnp.asarray(prompts))
+    with pytest.raises(Exception):
+        ref_lm.flush_tails(ref_lm.extend_caches(rc, rcfg, S + GEN), rcfg)
