@@ -5,7 +5,12 @@ LM serving: a batched prefill, then greedy decoding over a batch of
 synthetic prompts, reporting the prefill time and decode tokens/s.
 
     python -m repro_torch.launch.serve --arch llama3.1-8b --reduced \
-        --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu
+        --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu [--trace DIR]
+
+``--trace DIR`` writes the request's serving spans (``generate`` down to
+the MoE block's route, gather, dispatch and combine) to
+``DIR/trace.jsonl``; ``python -m repro_torch.obs.export --root DIR``
+renders them for chrome://tracing or Perfetto.
 
 Every config of the zoo serves: the attention-only ones (``llama3.1-8b``,
 ``smolvlm``, ``smollm-135m``, ``qwen1.5-110b``, ``qwen2-72b``,
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -37,6 +43,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.blocks import KV_TAIL
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import serving_span as span
 
 
 @dataclasses.dataclass
@@ -65,31 +73,41 @@ def generate(params, cfg: ArchConfig, prompts: torch.Tensor,
     steps over a cache of S + gen_tokens positions, merging the ring tails
     every ``KV_TAIL`` steps (a window shorter than the tail is refused
     before the prefill when a merge would come).  The clocks are read only
-    after the device finished the work they time."""
+    after the device finished the work they time.  Under a tracer or a
+    recording profiler the request records its serving spans
+    (``repro_torch.obs.trace``): ``serve.request`` around the prefill, the
+    cache extension, each decode step (with its tail merge) and the copy
+    of the tokens to the host."""
     if gen_tokens - 1 >= KV_TAIL:
         lm.check_flushable(cfg)
     dev = prompts.device
     B, prompt_len = prompts.shape
     _sync(dev)
-    t0 = time.perf_counter()
-    logits, caches = lm.prefill(params, cfg, prompts, ctx)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-    caches = lm.extend_caches(caches, cfg, prompt_len + gen_tokens)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    out = [tok]
-    _sync(dev)
-    t0 = time.perf_counter()
-    for i in range(gen_tokens - 1):
-        step_logits, caches = lm.decode_step(params, cfg, tok, caches,
-                                             prompt_len + i)
-        if (i + 1) % KV_TAIL == 0:     # amortised prefix merge
-            caches = lm.flush_tails(caches, cfg)
-        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
-        out.append(tok)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-    tokens = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+    with obs_trace.serving_request(dev), span("serve.request"):
+        t0 = time.perf_counter()
+        with span("serve.prefill"):
+            logits, caches = lm.prefill(params, cfg, prompts, ctx)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        with span("serve.extend_caches"):
+            caches = lm.extend_caches(caches, cfg, prompt_len + gen_tokens)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out = [tok]
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(gen_tokens - 1):
+            with span("serve.decode_step"):
+                step_logits, caches = lm.decode_step(params, cfg, tok,
+                                                     caches, prompt_len + i)
+                if (i + 1) % KV_TAIL == 0:     # amortised prefix merge
+                    with span("serve.flush_tails"):
+                        caches = lm.flush_tails(caches, cfg)
+                tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+        with span("serve.to_host"):
+            tokens = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
     return Generation(tokens, logits, t_prefill, t_decode)
 
 
@@ -297,6 +315,10 @@ def main(argv=None) -> None:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8177)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write the decode loop's serving spans to "
+                         "DIR/trace.jsonl (render: python -m "
+                         "repro_torch.obs.export --root DIR)")
     a = ap.parse_args(argv)
     if a.recommend:
         from repro_torch.launch.recommend import Recommender
@@ -309,8 +331,16 @@ def main(argv=None) -> None:
         return
     if not a.arch:
         ap.error("--arch is required (or pass --recommend ROOT)")
-    serve(a.arch, reduced=a.reduced, batch=a.batch, prompt_len=a.prompt_len,
-          gen_tokens=a.gen, device=a.device)
+    tracer = (obs_trace.Tracer(os.path.join(a.trace, obs_trace.TRACE_NAME),
+                               proc="serve") if a.trace else None)
+    prev = obs_trace.install_tracer(tracer)
+    try:
+        serve(a.arch, reduced=a.reduced, batch=a.batch,
+              prompt_len=a.prompt_len, gen_tokens=a.gen, device=a.device)
+    finally:
+        obs_trace.install_tracer(prev)
+        if tracer is not None:
+            tracer.close()
 
 
 if __name__ == "__main__":

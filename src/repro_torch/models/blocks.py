@@ -28,6 +28,8 @@ from repro_torch.configs.base import ArchConfig, MambaConfig, XLSTMConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import serving_span as span
 
 MLSTM_CHUNK = 128
 MOE_CAPACITY = 1.25
@@ -186,95 +188,118 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Top-k MoE with the reference's three paths: an exact gather of the
     chosen experts for one token per row (decode), a dropless dense-masked
     compute for T <= 512 tokens, and the grouped capacity dispatch
-    (GShard-style, tokens past an expert's capacity dropped) above."""
+    (GShard-style, tokens past an expert's capacity dropped) above.  A
+    served request's spans: ``moe`` around ``moe.route`` and the path's
+    parts, and its token-expert assignments counted with those dropped."""
     m = cfg.moe
     B, S, d = h.shape
     T = B * S
-    ht = L.reshape(h, T, d)
-    if S == 1:
-        gate_vals, idx = _route(p, ht, m.top_k)              # [T, k]
-        up_w = p["e_up"][idx]                                # [T,k,d,f]
-        dn_w = p["e_down"][idx]                              # [T,k,f,d]
-        if "e_gate" in p:
-            z = L.swiglu(_per_token("td,tkdf->tkf", ht, p["e_gate"][idx]),
-                         _per_token("td,tkdf->tkf", ht, up_w))
-        else:
-            z = L.gelu(_per_token("td,tkdf->tkf", ht, up_w))
-        y = _per_token("tkf,tkfd->tkd", z, dn_w)
-        out = _per_token("tk,tkd->td", gate_vals.to(y.dtype), y)
-        if "s_up" in p:
-            out = out + _shared_expert(p, ht)
-        return out.reshape(B, S, d)
-    if T <= 512:
-        gate_vals, idx = _route(p, ht, m.top_k)
-        w = torch.einsum("tke,tk->te",
-                         F.one_hot(idx, m.n_experts).float(), gate_vals)
-        if "e_gate" in p:
-            z = L.swiglu(torch.einsum("td,edf->tef", ht, p["e_gate"]),
-                         torch.einsum("td,edf->tef", ht, p["e_up"]))
-        else:
-            z = L.gelu(torch.einsum("td,edf->tef", ht, p["e_up"]))
-        ye = torch.einsum("tef,efd->ted", z, p["e_down"]).float()
-        out = torch.einsum("ted,te->td", ye, w).to(ht.dtype)
-        if "s_up" in p:
-            out = out + _shared_expert(p, ht)
-        return out.reshape(B, S, d)
-    # --- grouped capacity dispatch: ~8192-token groups, one at a time -----
-    g = max(1, min(S, 8192 // max(1, B)))
-    while S % g:
-        g -= 1
-    n_groups = S // g
-    tg = B * g
-    cap = max(1, int(MOE_CAPACITY * m.top_k * tg / m.n_experts))
-    slots = torch.arange(cap, device=h.device, dtype=torch.float32)
-    # on a mesh: the experts' FSDP shards gathered once for all the groups,
-    # and the tokens split by batch rows only, so that a group is a slice
-    experts = [L.gather_fsdp(p[k]) for k in ("e_gate", "e_up", "e_down")
-               if k in p]
-    h = L.shard_hint(h, "__dp__", None, None)
+    with span("moe"):
+        ht = L.reshape(h, T, d)
+        if S == 1:
+            with span("moe.route"):
+                gate_vals, idx = _route(p, ht, m.top_k)          # [T, k]
+            obs_trace.moe_assignments(T * m.top_k)
+            with span("moe.gather"):
+                up_w = p["e_up"][idx]                            # [T,k,d,f]
+                dn_w = p["e_down"][idx]                          # [T,k,f,d]
+                gate_w = p["e_gate"][idx] if "e_gate" in p else None
+            with span("moe.experts"):
+                if gate_w is not None:
+                    z = L.swiglu(_per_token("td,tkdf->tkf", ht, gate_w),
+                                 _per_token("td,tkdf->tkf", ht, up_w))
+                else:
+                    z = L.gelu(_per_token("td,tkdf->tkf", ht, up_w))
+                y = _per_token("tkf,tkfd->tkd", z, dn_w)
+                out = _per_token("tk,tkd->td", gate_vals.to(y.dtype), y)
+                if "s_up" in p:
+                    out = out + _shared_expert(p, ht)
+            return out.reshape(B, S, d)
+        if T <= 512:
+            with span("moe.route"):
+                gate_vals, idx = _route(p, ht, m.top_k)
+            obs_trace.moe_assignments(T * m.top_k)
+            with span("moe.dense"):
+                w = torch.einsum("tke,tk->te",
+                                 F.one_hot(idx, m.n_experts).float(),
+                                 gate_vals)
+                if "e_gate" in p:
+                    z = L.swiglu(torch.einsum("td,edf->tef", ht, p["e_gate"]),
+                                 torch.einsum("td,edf->tef", ht, p["e_up"]))
+                else:
+                    z = L.gelu(torch.einsum("td,edf->tef", ht, p["e_up"]))
+                ye = torch.einsum("tef,efd->ted", z, p["e_down"]).float()
+                out = torch.einsum("ted,te->td", ye, w).to(ht.dtype)
+                if "s_up" in p:
+                    out = out + _shared_expert(p, ht)
+            return out.reshape(B, S, d)
+        # --- grouped capacity dispatch: ~8192-token groups, one at a time -
+        g = max(1, min(S, 8192 // max(1, B)))
+        while S % g:
+            g -= 1
+        n_groups = S // g
+        tg = B * g
+        cap = max(1, int(MOE_CAPACITY * m.top_k * tg / m.n_experts))
+        slots = torch.arange(cap, device=h.device, dtype=torch.float32)
+        # on a mesh: the experts' FSDP shards gathered once for all the
+        # groups, and the tokens split by batch rows only, so that a group
+        # is a slice
+        experts = [L.gather_fsdp(p[k]) for k in ("e_gate", "e_up", "e_down")
+                   if k in p]
+        h = L.shard_hint(h, "__dp__", None, None)
 
-    def group_fn(hgrp, *experts):
-        """hgrp: [B, g, d] -> [B, g, d] (router recomputed in-group); the
-        experts come as arguments, not from the closure, so that a
-        group's remat keeps no gathered weights across the forward."""
-        *gate, up, down = experts
-        ht = L.reshape(hgrp, tg, d)
-        gv, ix = _route(p, ht, m.top_k)
-        onehot = F.one_hot(ix, m.n_experts).float()          # [t,k,e]
-        load = onehot.sum(1)                                 # [t,e]
-        pos = torch.cumsum(load, dim=0) - load
-        keep = (pos < cap).float()
-        pos_k = torch.einsum("tke,te->tk", onehot, pos)
-        keep_k = torch.einsum("tke,te->tk", onehot, keep)
-        # one_hot(pos_k, cap) with positions past the capacity as zero rows
-        slot = (pos_k[..., None] == slots).float()           # [t,k,c]
-        disp = torch.einsum("tke,tkc->tec", onehot * keep_k[..., None], slot)
-        xe = torch.einsum("td,tec->ecd", ht.float(), disp).to(ht.dtype)
-        if gate:
-            z = L.swiglu(torch.einsum("ecd,edf->ecf", xe, gate[0]),
-                         torch.einsum("ecd,edf->ecf", xe, up))
-        else:
-            z = L.gelu(torch.einsum("ecd,edf->ecf", xe, up))
-        ye = torch.einsum("ecf,efd->ecd", z, down)
-        comb = disp * torch.einsum("tk,tke->te", gv, onehot)[..., None]
-        out = torch.einsum("ecd,tec->td", ye.float(), comb)
-        return out.to(ht.dtype).reshape(B, g, d)
+        def group_fn(hgrp, *experts):
+            """hgrp: [B, g, d] -> [B, g, d] (router recomputed in-group);
+            the experts come as arguments, not from the closure, so that a
+            group's remat keeps no gathered weights across the forward."""
+            *gate, up, down = experts
+            ht = L.reshape(hgrp, tg, d)
+            with span("moe.route"):
+                gv, ix = _route(p, ht, m.top_k)
+            with span("moe.dispatch"):
+                onehot = F.one_hot(ix, m.n_experts).float()      # [t,k,e]
+                load = onehot.sum(1)                             # [t,e]
+                pos = torch.cumsum(load, dim=0) - load
+                keep = (pos < cap).float()
+                pos_k = torch.einsum("tke,te->tk", onehot, pos)
+                keep_k = torch.einsum("tke,te->tk", onehot, keep)
+                obs_trace.moe_assignments(tg * m.top_k, keep_k)
+                # one_hot(pos_k, cap) with positions past the capacity as
+                # zero rows
+                slot = (pos_k[..., None] == slots).float()       # [t,k,c]
+                disp = torch.einsum("tke,tkc->tec",
+                                    onehot * keep_k[..., None], slot)
+                xe = torch.einsum("td,tec->ecd", ht.float(),
+                                  disp).to(ht.dtype)
+            with span("moe.experts"):
+                if gate:
+                    z = L.swiglu(torch.einsum("ecd,edf->ecf", xe, gate[0]),
+                                 torch.einsum("ecd,edf->ecf", xe, up))
+                else:
+                    z = L.gelu(torch.einsum("ecd,edf->ecf", xe, up))
+                ye = torch.einsum("ecf,efd->ecd", z, down)
+            with span("moe.combine"):
+                comb = disp * torch.einsum("tk,tke->te", gv,
+                                           onehot)[..., None]
+                out = torch.einsum("ecd,tec->td", ye.float(), comb)
+            return out.to(ht.dtype).reshape(B, g, d)
 
-    if n_groups == 1:
-        out = group_fn(h, *experts)
-    else:
-        # one group's dispatch buffers live at a time in the backward (the
-        # reference's lax.map of a remat'd group_fn)
-        hg = h.reshape(B, n_groups, g, d)
-        out = torch.cat([L.remat(group_fn, hg[:, i], *experts)
-                         for i in range(n_groups)], dim=1)
-        # on a mesh the gradient comes back split along the sequence, which
-        # the cat's backward slices by group: re-laid out once here, not
-        # gathered whole for every group's slice
-        out = L.shard_hint(out, "__dp__", None, "model")
-    if "s_up" in p:
-        out = out + _shared_expert(p, ht).reshape(B, S, d)
-    return out
+        if n_groups == 1:
+            out = group_fn(h, *experts)
+        else:
+            # one group's dispatch buffers live at a time in the backward
+            # (the reference's lax.map of a remat'd group_fn)
+            hg = h.reshape(B, n_groups, g, d)
+            out = torch.cat([L.remat(group_fn, hg[:, i], *experts)
+                             for i in range(n_groups)], dim=1)
+            # on a mesh the gradient comes back split along the sequence,
+            # which the cat's backward slices by group: re-laid out once
+            # here, not gathered whole for every group's slice
+            out = L.shard_hint(out, "__dp__", None, "model")
+        if "s_up" in p:
+            with span("moe.experts"):
+                out = out + _shared_expert(p, ht).reshape(B, S, d)
+        return out
 
 
 # ===========================================================================
@@ -314,25 +339,26 @@ def _attn_qkv(p: Dict, cfg: ArchConfig, h: torch.Tensor, positions):
 
 def _attn_apply(p: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor, ctx,
                 positions, causal: bool, collect: bool):
-    B, S, _ = x.shape
-    hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    q, k, v, cache = _attn_qkv(p, cfg, h, positions)
-    o = attn.chunked_attention(q, k, v, causal=causal,
-                               window=cfg.sliding_window)
-    x = x + L.linear(p["wo"], L.reshape(o, B, S, -1))
-    if kind == "xattn" and ctx is not None:
-        hx = L.rmsnorm(p["x_norm"], x, cfg.norm_eps)
-        Sc = ctx.shape[1]
-        qx = L.reshape(L.linear(p["x_wq"], hx), B, S, H, hd)
-        kx = L.reshape(L.linear(p["x_wk"], ctx), B, Sc, Hk, hd)
-        vx = L.reshape(L.linear(p["x_wv"], ctx), B, Sc, Hk, hd)
-        ox = attn.chunked_attention(qx, kx, vx, causal=False)
-        gate = torch.tanh(p["x_gate"].float()).to(x.dtype)
-        x = x + gate * L.linear(p["x_wo"], L.reshape(ox, B, S, H * hd))
-        if collect:
-            cache = dict(cache, xk=kx, xv=vx)
-    return x, (cache if collect else None)
+    with span("attn"):
+        B, S, _ = x.shape
+        hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        q, k, v, cache = _attn_qkv(p, cfg, h, positions)
+        o = attn.chunked_attention(q, k, v, causal=causal,
+                                   window=cfg.sliding_window)
+        x = x + L.linear(p["wo"], L.reshape(o, B, S, -1))
+        if kind == "xattn" and ctx is not None:
+            hx = L.rmsnorm(p["x_norm"], x, cfg.norm_eps)
+            Sc = ctx.shape[1]
+            qx = L.reshape(L.linear(p["x_wq"], hx), B, S, H, hd)
+            kx = L.reshape(L.linear(p["x_wk"], ctx), B, Sc, Hk, hd)
+            vx = L.reshape(L.linear(p["x_wv"], ctx), B, Sc, Hk, hd)
+            ox = attn.chunked_attention(qx, kx, vx, causal=False)
+            gate = torch.tanh(p["x_gate"].float()).to(x.dtype)
+            x = x + gate * L.linear(p["x_wo"], L.reshape(ox, B, S, H * hd))
+            if collect:
+                cache = dict(cache, xk=kx, xv=vx)
+        return x, (cache if collect else None)
 
 
 # ===========================================================================
@@ -570,40 +596,41 @@ def block_decode(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
     B = x_t.shape[0]
     hd, H, Hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if kind in ("attn", "xattn"):
-        h = L.rmsnorm(params["norm1"], x_t, cfg.norm_eps)
-        positions = torch.full((B, 1), pos, device=x_t.device)
-        # two-tier cache: `plen` tokens live in the prefix, the newest
-        # (pos - plen + 1) in the ring tail; writes touch only the tail
-        plen = cache["plen"]
-        tpos = torch.clamp_min(pos - plen, 0) % KV_TAIL
-        if cfg.mla is not None:
-            o, cache = _mla_decode(params, cfg, h, cache, positions, tpos)
-            x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, -1))
-        else:
-            q = L.reshape(L.linear(params["wq"], h), B, 1, H, hd)
-            k = L.reshape(L.linear(params["wk"], h), B, 1, Hk, hd)
-            v = L.reshape(L.linear(params["wv"], h), B, 1, Hk, hd)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
-            S = cache["k"].shape[1]
-            kt, vt = attn.cache_update(cache["k_tail"], cache["v_tail"], k,
-                                       v, tpos)
-            # prefix: a ring of the last <= S tokens (== the window for
-            # sliding-window archs); tail: the newest tpos + 1 tokens
-            pre = attn.decode_attention_stats(q, cache["k"], cache["v"],
-                                              torch.clamp_max(plen, S))
-            tail = attn.decode_attention_stats(q, kt, vt, tpos + 1)
-            o = attn.merge_attention([pre, tail], x_t.dtype)
-            x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, H * hd))
-            cache = dict(cache, k_tail=kt, v_tail=vt)
-        if kind == "xattn" and "xk" in cache:
-            hx = L.rmsnorm(params["x_norm"], x_t, cfg.norm_eps)
-            qx = L.reshape(L.linear(params["x_wq"], hx), B, 1, H, hd)
-            ox = attn.decode_attention(qx, cache["xk"], cache["xv"],
-                                       cache["xk"].shape[1])
-            gate = torch.tanh(params["x_gate"].float()).to(x_t.dtype)
-            x_t = x_t + gate * L.linear(params["x_wo"],
-                                        L.reshape(ox, B, 1, H * hd))
+        with span("attn"):
+            h = L.rmsnorm(params["norm1"], x_t, cfg.norm_eps)
+            positions = torch.full((B, 1), pos, device=x_t.device)
+            # two-tier cache: `plen` tokens live in the prefix, the newest
+            # (pos - plen + 1) in the ring tail; writes touch only the tail
+            plen = cache["plen"]
+            tpos = torch.clamp_min(pos - plen, 0) % KV_TAIL
+            if cfg.mla is not None:
+                o, cache = _mla_decode(params, cfg, h, cache, positions, tpos)
+                x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, -1))
+            else:
+                q = L.reshape(L.linear(params["wq"], h), B, 1, H, hd)
+                k = L.reshape(L.linear(params["wk"], h), B, 1, Hk, hd)
+                v = L.reshape(L.linear(params["wv"], h), B, 1, Hk, hd)
+                q = L.apply_rope(q, positions, cfg.rope_theta)
+                k = L.apply_rope(k, positions, cfg.rope_theta)
+                S = cache["k"].shape[1]
+                kt, vt = attn.cache_update(cache["k_tail"], cache["v_tail"], k,
+                                           v, tpos)
+                # prefix: a ring of the last <= S tokens (== the window for
+                # sliding-window archs); tail: the newest tpos + 1 tokens
+                pre = attn.decode_attention_stats(q, cache["k"], cache["v"],
+                                                  torch.clamp_max(plen, S))
+                tail = attn.decode_attention_stats(q, kt, vt, tpos + 1)
+                o = attn.merge_attention([pre, tail], x_t.dtype)
+                x_t = x_t + L.linear(params["wo"], L.reshape(o, B, 1, H * hd))
+                cache = dict(cache, k_tail=kt, v_tail=vt)
+            if kind == "xattn" and "xk" in cache:
+                hx = L.rmsnorm(params["x_norm"], x_t, cfg.norm_eps)
+                qx = L.reshape(L.linear(params["x_wq"], hx), B, 1, H, hd)
+                ox = attn.decode_attention(qx, cache["xk"], cache["xv"],
+                                           cache["xk"].shape[1])
+                gate = torch.tanh(params["x_gate"].float()).to(x_t.dtype)
+                x_t = x_t + gate * L.linear(params["x_wo"],
+                                            L.reshape(ox, B, 1, H * hd))
     elif kind == "mamba":
         x_t, cache = _mamba_decode(params, cfg, x_t, cache)
     elif kind == "mlstm":

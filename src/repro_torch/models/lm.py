@@ -38,6 +38,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models import layers as L
+from repro_torch.obs.trace import serving_span as span
 
 
 # --------------------------------------------------------------- structure
@@ -145,12 +146,13 @@ def _head_w(params, cfg) -> torch.Tensor:
 
 
 def _head(params, cfg, x):
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = L.matmul(x, _head_w(params, cfg))
-    else:
-        logits = L.linear(params["lm_head"], x)
-    return L.shard_hint(logits, "__dp__", None, "model")
+    with span("lm.head"):
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = L.matmul(x, _head_w(params, cfg))
+        else:
+            logits = L.linear(params["lm_head"], x)
+        return L.shard_hint(logits, "__dp__", None, "model")
 
 
 # ------------------------------------------------------------------ forward

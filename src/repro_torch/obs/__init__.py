@@ -3,11 +3,15 @@ structured logging.
 
 Three zero-dependency pillars shared by every layer of the stack
 (search engine, campaign runner, fleet workers/supervisor, recommend
-server):
+server, LM serving):
 
 * :mod:`repro_torch.obs.trace`   — ``Span``/``trace()`` crash-safe JSONL span
   logs (one ``trace.jsonl`` per process, Chrome/Perfetto-exportable via
-  ``python -m repro_torch.obs.export``);
+  ``python -m repro_torch.obs.export``), and the serving spans of
+  ``repro_torch.launch.serve.generate``: one request's steps down to the
+  MoE block's route, gather, dispatch and combine, with host and device
+  seconds and the MoE's dropped assignments, on while a tracer is
+  installed or a ``torch.profiler`` records;
 * :mod:`repro_torch.obs.metrics` — ``MetricsRegistry`` counters / gauges /
   fixed-bucket histograms with deterministic aggregation and a
   Prometheus text rendering (the serve ``/metrics`` surface and the
@@ -17,7 +21,8 @@ server):
 
 Everything here READS clocks and counters but never touches an RNG
 stream or checkpoint content: searches with telemetry on are bitwise
-identical to telemetry off (``tests/test_torch_obs.py``).  Records keep
+identical to telemetry off (``tests/test_torch_obs.py``), and so are
+served tokens and logits (``tests/test_torch_serve_trace.py``).  Records keep
 the reference's file names and formats, so either package reads the
 other's run directories.
 """
