@@ -184,13 +184,63 @@ def _per_token(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., None] * b).sum(1)                         # tk,tkd->td
 
 
+def _index_dispatch(ht, onehot, ix, pos_k, keep_k, cap):
+    """The grouped path's dispatch on plain tensors: a kept (token,
+    choice) takes slot ``ix * cap + pos_k``, a dropped one the spare slot
+    ``E * cap``; each expert slot then reads its token's row through the
+    inverse map, an empty slot the zero row past the last token.  Row
+    copies, no atomics, no host sync: the one-hot product's values
+    exactly.  -> xe [E, cap, d] in ``ht``'s dtype, and the slots [t, k]."""
+    (t, d), E = ht.shape, onehot.shape[-1]
+    spare = E * cap
+    slot = torch.where(keep_k > 0, ix * cap + pos_k.long(), spare)
+    token = torch.arange(t, device=ht.device)[:, None].expand_as(ix)
+    src = torch.full((spare + 1,), t, dtype=torch.long, device=ht.device)
+    src = src.scatter(0, slot.flatten(), token.flatten())[:spare]
+    xe = torch.cat([ht, ht.new_zeros(1, d)])[src]
+    return xe.view(E, cap, d), slot
+
+
+def _index_combine(ye, slot, onehot, gv):
+    """The experts' rows gathered back at each (token, choice)'s slot and
+    summed under the gates in float32 -> [t, d]; a dropped choice reads
+    the last slot's row under a zero gate, as every other row sits under
+    a zero in the one-hot product.  A token with one kept choice gets the
+    one-hot product's value exactly; one with two gets the sum of the
+    same two products, which a GEMM rounds fused or not by where the
+    slots fall in its K tiling (within one rounding of each product)."""
+    E, cap, d = ye.shape
+    rows = ye.reshape(E * cap, d)[slot.clamp(max=E * cap - 1)]   # [t,k,d]
+    return (rows * (gv * (slot < E * cap))[..., None]).sum(1)
+
+
+def _onehot_dispatch(ht, onehot, ix, pos_k, keep_k, cap):
+    """The grouped path's dispatch on DTensors, as float32 one-hot
+    products: DTensor has no sharding rule for the index operations on
+    tokens split over the data axes, and the dry-run's flop counter has
+    formulas for einsums.  -> xe [E, cap, d] and the dispatch tensor
+    [t, E, cap]."""
+    slots = torch.arange(cap, device=ht.device, dtype=torch.float32)
+    # one_hot(pos_k, cap) with positions past the capacity as zero rows
+    slot = (pos_k[..., None] == slots).float()                   # [t,k,c]
+    disp = torch.einsum("tke,tkc->tec", onehot * keep_k[..., None], slot)
+    xe = torch.einsum("td,tec->ecd", ht.float(), disp).to(ht.dtype)
+    return xe, disp
+
+
+def _onehot_combine(ye, disp, onehot, gv):
+    comb = disp * torch.einsum("tk,tke->te", gv, onehot)[..., None]
+    return torch.einsum("ecd,tec->td", ye.float(), comb)
+
+
 def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Top-k MoE with the reference's three paths: an exact gather of the
     chosen experts for one token per row (decode), a dropless dense-masked
     compute for T <= 512 tokens, and the grouped capacity dispatch
-    (GShard-style, tokens past an expert's capacity dropped) above.  A
-    served request's spans: ``moe`` around ``moe.route`` and the path's
-    parts, and its token-expert assignments counted with those dropped."""
+    (GShard-style, tokens past an expert's capacity dropped; rows moved by
+    index, by one-hot einsums on DTensors) above.  A served request's
+    spans: ``moe`` around ``moe.route`` and the path's parts, and its
+    token-expert assignments counted with those dropped."""
     m = cfg.moe
     B, S, d = h.shape
     T = B * S
@@ -240,7 +290,6 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
         n_groups = S // g
         tg = B * g
         cap = max(1, int(MOE_CAPACITY * m.top_k * tg / m.n_experts))
-        slots = torch.arange(cap, device=h.device, dtype=torch.float32)
         # on a mesh: the experts' FSDP shards gathered once for all the
         # groups, and the tokens split by batch rows only, so that a group
         # is a slice
@@ -259,18 +308,19 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
             with span("moe.dispatch"):
                 onehot = F.one_hot(ix, m.n_experts).float()      # [t,k,e]
                 load = onehot.sum(1)                             # [t,e]
-                pos = torch.cumsum(load, dim=0) - load
+                # along the transpose's inner dimension: down the outer
+                # one CUDA's scan takes a thread a column (on an H100, 1.02
+                # ms at 7,040 tokens and 8 experts, against 0.033)
+                pos = torch.cumsum(load.t().contiguous(), dim=1).t() - load
                 keep = (pos < cap).float()
                 pos_k = torch.einsum("tke,te->tk", onehot, pos)
                 keep_k = torch.einsum("tke,te->tk", onehot, keep)
                 obs_trace.moe_assignments(tg * m.top_k, keep_k)
-                # one_hot(pos_k, cap) with positions past the capacity as
-                # zero rows
-                slot = (pos_k[..., None] == slots).float()       # [t,k,c]
-                disp = torch.einsum("tke,tkc->tec",
-                                    onehot * keep_k[..., None], slot)
-                xe = torch.einsum("td,tec->ecd", ht.float(),
-                                  disp).to(ht.dtype)
+                dispatch, combine = (
+                    (_onehot_dispatch, _onehot_combine)
+                    if isinstance(ht, DTensor)
+                    else (_index_dispatch, _index_combine))
+                xe, plan = dispatch(ht, onehot, ix, pos_k, keep_k, cap)
             with span("moe.experts"):
                 if gate:
                     z = L.swiglu(torch.einsum("ecd,edf->ecf", xe, gate[0]),
@@ -279,9 +329,7 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
                     z = L.gelu(torch.einsum("ecd,edf->ecf", xe, up))
                 ye = torch.einsum("ecf,efd->ecd", z, down)
             with span("moe.combine"):
-                comb = disp * torch.einsum("tk,tke->te", gv,
-                                           onehot)[..., None]
-                out = torch.einsum("ecd,tec->td", ye.float(), comb)
+                out = combine(ye, plan, onehot, gv)
             return out.to(ht.dtype).reshape(B, g, d)
 
         if n_groups == 1:

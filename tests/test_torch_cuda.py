@@ -883,6 +883,90 @@ def test_lm_generation_on_card_matches_cpu(dev, arch, dtype):
         assert err <= 5e-2 * scale, (err, scale)
 
 
+def test_grouped_moe_by_index_at_mixtral_widths(dev, monkeypatch):
+    """One group of 7,040 tokens at Mixtral's widths (d 4,096, f 14,336, 8
+    experts, top-2, bf16), the inputs offset so that tokens drop, through
+    the grouped path by row index and by the one-hot einsums that DTensors
+    keep.  Bitwise: the experts' inputs and outputs, and each token's
+    combined row (and output) where at most one of its choices was kept.
+    A token with two kept choices sums two products, which the one-hot
+    GEMM rounds fused or not by where the two slots fall in its K tiling:
+    within 2^-22 of their magnitudes in float32, then bf16's rounding in
+    the output.  The index path runs without a host sync and peaks lower."""
+    from repro_torch.models import blocks as blk
+    E, d, f, t = 8, 4096, 14336, 7040
+    cfg = get_config("mixtral-8x7b")
+    g = _gen(dev, 3)
+    bf = torch.bfloat16
+    p = dict(router=dict(w=(torch.randn((d, E), generator=g, device=dev)
+                            * 0.02).to(bf)),
+             e_gate=torch.randn((E, d, f), generator=g, device=dev,
+                                dtype=bf) / d ** 0.5,
+             e_up=torch.randn((E, d, f), generator=g, device=dev,
+                              dtype=bf) / d ** 0.5,
+             e_down=torch.randn((E, f, d), generator=g, device=dev,
+                                dtype=bf) / f ** 0.5)
+    h = (torch.randn((1, t, d), generator=g, device=dev) + 1.0).to(bf)
+    # the most loaded expert last: its last slot taken, read by the
+    # dropped choices under their zero gates
+    load = torch.bincount(blk._route(p, h[0], 2)[1].flatten(), minlength=E)
+    p["router"]["w"] = p["router"]["w"][:, torch.argsort(load)]
+    index = (blk._index_dispatch, blk._index_combine)
+
+    def run(dispatch, combine):
+        seen = {}
+
+        def disp(ht, onehot, ix, pos_k, keep_k, cap):
+            xe, plan = dispatch(ht, onehot, ix, pos_k, keep_k, cap)
+            seen.update(xe=xe, slot=index[0](ht, onehot, ix, pos_k, keep_k,
+                                             cap)[1])
+            return xe, plan
+
+        def comb(ye, plan, onehot, gv):
+            seen.update(ye=ye, out=combine(ye, plan, onehot, gv),
+                        mag=index[1](ye.abs(), seen["slot"], onehot,
+                                     gv.abs()))
+            return seen["out"]
+        monkeypatch.setattr(blk, "_index_dispatch", disp)
+        monkeypatch.setattr(blk, "_index_combine", comb)
+        with torch.no_grad():
+            blk._moe(p, cfg, h)                     # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = blk._moe(p, cfg, h)
+            torch.cuda.synchronize()
+        return out, seen, torch.cuda.max_memory_allocated() - base
+
+    out_o, seen_o, peak_o = run(blk._onehot_dispatch, blk._onehot_combine)
+    out_i, seen_i, peak_i = run(*index)
+    assert torch.equal(seen_i["xe"], seen_o["xe"])
+    assert torch.equal(seen_i["ye"], seen_o["ye"])
+    kept = (seen_i["slot"] < E * seen_i["ye"].shape[1]).sum(1)
+    assert (kept < 2).any() and (kept == 2).any()
+    assert (seen_i["slot"] == E * seen_i["ye"].shape[1] - 1).any()
+    one = kept <= 1
+    assert torch.equal(seen_i["out"][one], seen_o["out"][one])
+    assert bool(((seen_i["out"] - seen_o["out"]).abs()
+                 <= 2.0 ** -22 * seen_i["mag"]).all())
+    out_i, out_o = out_i.reshape(t, d), out_o.reshape(t, d)
+    assert torch.equal(out_i[one], out_o[one])
+    # each output within bf16's unit roundoff of its float32 sum
+    c_i, c_o = seen_i["out"], seen_o["out"]
+    room = (c_i - c_o).abs() + 2.0 ** -8 * (c_i.abs() + c_o.abs())
+    assert bool(((out_i.float() - out_o.float()).abs() <= room).all())
+    assert peak_i < peak_o, (peak_i, peak_o)
+    monkeypatch.setattr(blk, "_index_dispatch", index[0])
+    monkeypatch.setattr(blk, "_index_combine", index[1])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            again = blk._moe(p, cfg, h)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again.reshape(t, d), out_i)
+
+
 def test_devices_one_on_card_is_bitwise_devices_none(dev):
     """``devices=1`` runs the chunked env path with one chunk on the card;
     its env rollout and a short search (gate open, learning on) are

@@ -3,7 +3,9 @@ reference (``repro.models.{layers,attention,blocks}``) on the same seeded
 inputs and converted reference weights: float32 at 1e-5 relative to the
 largest output (another order of sums), bf16 at the rounding of a bf16
 output.  ``_moe`` is held on each of its three paths: one token per row
-(decode), T <= 512 tokens (dense-masked) and T = 768 (capacity dispatch)."""
+(decode), T <= 512 tokens (dense-masked) and T = 768 (capacity dispatch);
+the capacity dispatch's row indices also against the one-hot einsums that
+DTensors keep, outputs and gradients."""
 import dataclasses
 
 import jax
@@ -206,3 +208,105 @@ def test_init_cache_matches_reference_layout(kind):
         assert tuple(got[k].shape) == want[k].shape
         assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
         assert not got[k].any()
+
+
+_INDEX = (blk._index_dispatch, blk._index_combine)
+_ONEHOT = (blk._onehot_dispatch, blk._onehot_combine)
+
+
+def _recording(dispatch, combine, seen):
+    """``dispatch`` and ``combine`` with each call's expert inputs (in
+    ``seen["xe"]``), and each combine's expert outputs, combined rows and
+    the bound on their rounding (in ``seen["out"]``): the gated sum of the
+    |rows| each token reads, by index."""
+    def disp(ht, onehot, ix, pos_k, keep_k, cap):
+        xe, plan = dispatch(ht, onehot, ix, pos_k, keep_k, cap)
+        seen["xe"].append(xe.detach().clone())
+        seen["slot"] = _INDEX[0](ht, onehot, ix, pos_k, keep_k, cap)[1]
+        return xe, plan
+
+    def comb(ye, plan, onehot, gv):
+        out = combine(ye, plan, onehot, gv)
+        seen["out"].append(dict(
+            ye=ye.detach().clone(), out=out.detach().clone(),
+            kept=(seen["slot"] < ye.shape[0] * ye.shape[1]).sum(1),
+            full=bool((seen["slot"] == ye.shape[0] * ye.shape[1] - 1).any()),
+            mag=_INDEX[1](ye.detach().abs(), seen["slot"], onehot,
+                          gv.detach().abs())))
+        return out
+    return disp, comb
+
+
+@pytest.mark.parametrize("B,S", [(2, 384), (2, 4160)])
+@pytest.mark.parametrize("variant", ["swiglu", "gelu", "shared"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_index_path_matches_onehot(B, S, variant, dtype, monkeypatch):
+    """The grouped path's row-index dispatch and combine against the
+    one-hot einsums that DTensors keep, on plain tensors: 768 tokens (one
+    group) and 8,320 (two groups of 4,160, each through ``L.remat``), the
+    router sharpened so that tokens drop.  Exact: the experts' inputs and
+    outputs, each token's combined row where at most one of its choices
+    was kept, and the experts' (and shared expert's) gradients, since
+    each expert slot takes one (token, choice) and each of its backward
+    products one term.  A token with two kept choices sums two products,
+    which the one-hot GEMM rounds fused or not by where the two slots fall
+    in its K tiling: within 2^-22 of the sum of their magnitudes, twice
+    one fp32 rounding of each; downstream, the dtype's rounding."""
+    td = L.dtype_of(dtype)
+    cfg = dataclasses.replace(
+        get_reduced("jamba-v0.1-52b"), param_dtype=dtype,
+        mlp_gated=variant != "gelu",
+        moe=TorchMoE(n_experts=4, top_k=2, every=2,
+                     shared_expert=variant == "shared"))
+    gen = torch.Generator().manual_seed(S)
+    p = blk.block_init(gen, cfg, "mamba", True)
+    p = {k: v for k, v in p.items() if k in (
+        "router", "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down")}
+    h = (torch.randn(B, S, cfg.d_model, generator=gen) + 2.0).to(td)
+    # the most loaded expert last, so that the last slot is taken and a
+    # dropped choice reads a real row under its zero gate
+    w = p["router"]["w"] * 30.0
+    load = torch.bincount(blk._route(dict(router=dict(w=w)),
+                                     h.reshape(B * S, -1),
+                                     2)[1].flatten(), minlength=4)
+    p["router"] = dict(w=w[:, torch.argsort(load)])
+    leaves = {k: (v["w"] if isinstance(v, dict) else v).requires_grad_()
+              for k, v in p.items()}
+    h.requires_grad_()
+    cot = torch.randn(B, S, cfg.d_model, generator=gen)
+
+    def run(dispatch, combine):
+        seen = dict(xe=[], out=[])
+        disp, comb = _recording(dispatch, combine, seen)
+        monkeypatch.setattr(blk, "_index_dispatch", disp)
+        monkeypatch.setattr(blk, "_index_combine", comb)
+        out = blk._moe(p, cfg, h)
+        grads = torch.autograd.grad((out.float() * cot).sum(),
+                                    [h, *leaves.values()])
+        return out.detach(), dict(zip(["h", *leaves], grads)), seen
+
+    out_i, grad_i, seen_i = run(*_INDEX)
+    out_o, grad_o, seen_o = run(*_ONEHOT)
+    # a forward a group (with two groups, remat's recomputed dispatches too)
+    n_groups = 1 if S == 384 else 2
+    assert len(seen_i["out"]) == len(seen_o["out"]) == n_groups
+    assert len(seen_i["xe"]) == len(seen_o["xe"]) >= n_groups
+    for a, b in zip(seen_i["xe"], seen_o["xe"]):
+        assert torch.equal(a, b)
+    for a, b in zip(seen_i["out"], seen_o["out"]):
+        assert torch.equal(a["ye"], b["ye"])
+        kept = a["kept"]
+        assert (kept < 2).any() and (kept == 2).any()     # drops, and sums
+        assert a["full"]
+        one = kept <= 1
+        assert torch.equal(a["out"][one], b["out"][one])
+        assert bool(((a["out"] - b["out"]).abs()
+                     <= 2.0 ** -22 * a["mag"]).all())
+    _close(out_i, out_o.float().numpy(), 1e-6 if dtype == "float32" else
+           1e-2)
+    for k in leaves:
+        if k != "router":
+            assert torch.equal(grad_i[k], grad_o[k]), k
+    rel = 1e-5 if dtype == "float32" else 1e-2
+    _close(grad_i["h"], grad_o["h"].float().numpy(), rel)
+    _close(grad_i["router"], grad_o["router"].float().numpy(), rel)

@@ -246,6 +246,31 @@ def test_dropped_count_equals_a_recount_from_the_routing(model, registry,
         == cfg.n_layers * B * (GEN - 1) * m.top_k
 
 
+def test_moe_counters_match_the_onehot_formulation(model, registry,
+                                                   monkeypatch):
+    """The grouped prefill by row index and by the one-hot einsums that
+    DTensors keep: the same assignments and drops counted, and the same
+    ``moe.dispatch`` calls, one a block (a group of 640 tokens)."""
+    cfg, params, prompts = model
+
+    def counted():
+        registry.clear()
+        with _profiler():
+            serve.generate(params, cfg, prompts, GEN)
+        snap = registry.snapshot()
+        value = lambda name, labels: obs_metrics.snapshot_value(  # noqa
+            snap, "counters", name, labels)
+        return (value("lm_moe_assignments_total", {"phase": "prefill"}),
+                value("lm_moe_dropped_total", {"phase": "prefill"}),
+                value("lm_span_calls_total", {"span": "moe.dispatch"}))
+    index = counted()
+    monkeypatch.setattr(blocks, "_index_dispatch", blocks._onehot_dispatch)
+    monkeypatch.setattr(blocks, "_index_combine", blocks._onehot_combine)
+    assert counted() == index
+    assert index[0] == cfg.n_layers * B * S * cfg.moe.top_k
+    assert index[1] > 0 and index[2] == cfg.n_layers
+
+
 def test_a_failed_request_adds_nothing(model, registry, monkeypatch):
     cfg, params, prompts = model
     step = lm.decode_step
