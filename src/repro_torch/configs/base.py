@@ -33,6 +33,7 @@ class MoEConfig:
     d_ff_expert: int = 0          # 0 -> use arch d_ff
     every: int = 1                # MoE FFN on every `every`-th layer (1=all)
     shared_expert: bool = False   # Llama-4 style always-on shared expert
+    renormalize: bool = True      # gates renormalised over the top k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,8 @@ class MambaConfig:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
+    dt_rank: int = 1              # width of dt between x_proj and dt_proj
+    inner_norms: bool = False     # RMSNorms on dt, B and C (Jamba)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +67,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     mlp_gated: bool = True       # SwiGLU (3 mats) vs GELU MLP (2 mats)
     rope_theta: float = 10000.0
+    rope: bool = True                    # False: no positions (Jamba)
     norm_eps: float = 1e-5
     # --- attention variants ---
     mla: Optional[MLAConfig] = None
@@ -72,6 +76,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     # --- hybrid (Jamba): 1 attention layer per `attn_period` layers ---
     attn_period: int = 0                 # 0 = all-attention
+    attn_offset: int = 0                 # attention's layer in each period
     mamba: Optional[MambaConfig] = None
     # --- ssm (xLSTM) ---
     xlstm: Optional[XLSTMConfig] = None
@@ -103,7 +108,8 @@ class ArchConfig:
             if self.family == "ssm" and self.xlstm is not None:
                 k = "slstm" if (i % self.xlstm.slstm_every == self.xlstm.slstm_every - 1) else "mlstm"
             elif self.attn_period > 0 and self.mamba is not None:
-                k = "attn" if (i % self.attn_period == 0) else "mamba"
+                k = ("attn" if i % self.attn_period == self.attn_offset
+                     else "mamba")
             elif self.cross_attn_every > 0 and (i % self.cross_attn_every == self.cross_attn_every - 1):
                 k = "xattn"
             else:
@@ -143,7 +149,8 @@ class ArchConfig:
         def mamba_params() -> float:
             mc = self.mamba or MambaConfig()
             di = mc.expand * d
-            return (d * 2 * di + di * mc.d_conv + di * (2 * mc.d_state + 2)
+            return (d * 2 * di + di * mc.d_conv
+                    + di * (2 * mc.d_state + 2 * mc.dt_rank)
                     + di * mc.d_state + di * d)
 
         def xlstm_params(kind: str) -> float:
@@ -228,7 +235,11 @@ ARCH_IDS = (
     "llama3.1-8b", "smolvlm",
 )
 
-_MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+# published models the port runs beside the reference's zoo (ARCH_IDS)
+EXTRA_IDS = ("ai21-jamba2-mini",)
+
+_MOD = {a: a.replace("-", "_").replace(".", "_")
+        for a in ARCH_IDS + EXTRA_IDS}
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -8,7 +8,8 @@ synthetic prompts, reporting the prefill time and decode tokens/s.
         --batch 4 --prompt-len 32 --gen 32 --device cuda|cpu [--trace DIR]
 
 ``--trace DIR`` writes the request's serving spans (``generate`` down to
-the MoE block's route, gather, dispatch and combine) to
+the Mamba mixer's scan and the MoE block's route, gather, dispatch and
+combine) to
 ``DIR/trace.jsonl``; ``python -m repro_torch.obs.export --root DIR``
 renders them for chrome://tracing or Perfetto.
 
@@ -17,7 +18,8 @@ Every config of the zoo serves: the attention-only ones (``llama3.1-8b``,
 ``mixtral-8x7b``, ``llama4-maverick-400b-a17b``), ``minicpm3-4b`` (MLA),
 ``llama-3.2-vision-90b`` (cross-attention onto stub image embeddings),
 ``whisper-medium`` (its encoder over stub frame embeddings),
-``jamba-v0.1-52b`` with its Mamba layers and ``xlstm-1.3b``.
+``jamba-v0.1-52b`` with its Mamba layers and ``xlstm-1.3b``; beside the
+zoo, ``ai21-jamba2-mini`` (the published Jamba block).
 
 Recommendation server (:func:`recommend_server`): design queries over
 finished campaign run directories, answered by

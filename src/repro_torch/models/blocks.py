@@ -14,6 +14,13 @@ Full-sequence attention (self, cross and the Whisper encoder's) runs the
 where the reference runs their jnp oracles; with a gradient, their
 backward kernels.  The xLSTM blocks are torch ops, as the reference's are
 jnp (it has no kernel for them).
+
+Options of the config beyond the reference's, off by default, give the
+published Jamba block (``configs/ai21_jamba2_mini.py``): ``rope=False``
+(attention without positions), ``MambaConfig.dt_rank`` and
+``inner_norms`` (a dt of that rank out of ``x_proj``, RMSNorms on dt, B
+and C) and ``MoEConfig.renormalize=False`` (the top-k probabilities as
+they are for gates).
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.configs.base import ArchConfig, MambaConfig, XLSTMConfig
+from repro_torch.configs.base import (ArchConfig, MambaConfig, MoEConfig,
+                                      XLSTMConfig)
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -97,13 +105,17 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
             in_proj=lin(d, 2 * di),
             conv_w=L.normal(gen, lead + (mc.d_conv, di), 0.1, dt),
             conv_b=torch.zeros(lead + (di,), dtype=dt, device=dev),
-            x_proj=lin(di, 2 * mc.d_state + 1),
+            x_proj=lin(di, mc.dt_rank + 2 * mc.d_state),
             dt_bias=torch.zeros(lead + (di,), dtype=torch.float32, device=dev),
-            dt_w=lin(1, di),             # broadcast dt -> channels
+            dt_w=lin(mc.dt_rank, di),    # dt_proj: dt rank -> channels
             a_log=a_log.contiguous(),
             d_skip=torch.ones(lead + (di,), dtype=torch.float32, device=dev),
             out_proj=lin(di, d),
         )
+        if mc.inner_norms:
+            p.update(dt_norm=L.rmsnorm_init(mc.dt_rank, dt, dev, lead),
+                     b_norm=L.rmsnorm_init(mc.d_state, dt, dev, lead),
+                     c_norm=L.rmsnorm_init(mc.d_state, dt, dev, lead))
     else:
         raise ValueError(kind)
 
@@ -157,17 +169,22 @@ def _router_probs(p: Dict, ht: torch.Tensor) -> torch.Tensor:
     return torch.softmax(L.linear(p["router"], ht).float(), dim=-1)
 
 
-def _gates(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[T, k]: the chosen experts' probabilities renormalised over the k."""
-    gv = probs.gather(-1, idx)
-    return gv / torch.clamp_min(gv.sum(-1, keepdim=True), 1e-9)
-
-
 def _route(p: Dict, ht: torch.Tensor, top_k: int):
-    """Router softmax, top-k (descending), gates renormalised over the k."""
+    """Router softmax, top-k (descending): the chosen experts'
+    probabilities [T, k] and their indices."""
     probs = _router_probs(p, ht)
     idx = torch.topk(probs, top_k, dim=-1).indices
-    return _gates(probs, idx), idx
+    return probs.gather(-1, idx), idx
+
+
+def _route_gates(p: Dict, ht: torch.Tensor, m: MoEConfig):
+    """:func:`_route` (looked up at each call, so that a rebinding sees
+    every call) and its probabilities as gates: renormalised over the top
+    k where the config says so (Mixtral), as they are otherwise (Jamba)."""
+    gv, idx = _route(p, ht, m.top_k)
+    if m.renormalize:
+        gv = gv / torch.clamp_min(gv.sum(-1, keepdim=True), 1e-9)
+    return gv, idx
 
 
 def _per_token(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -248,7 +265,7 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
         ht = L.reshape(h, T, d)
         if S == 1:
             with span("moe.route"):
-                gate_vals, idx = _route(p, ht, m.top_k)          # [T, k]
+                gate_vals, idx = _route_gates(p, ht, m)          # [T, k]
             obs_trace.moe_assignments(T * m.top_k)
             with span("moe.gather"):
                 up_w = p["e_up"][idx]                            # [T,k,d,f]
@@ -267,7 +284,7 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
             return out.reshape(B, S, d)
         if T <= 512:
             with span("moe.route"):
-                gate_vals, idx = _route(p, ht, m.top_k)
+                gate_vals, idx = _route_gates(p, ht, m)
             obs_trace.moe_assignments(T * m.top_k)
             with span("moe.dense"):
                 w = torch.einsum("tke,tk->te",
@@ -304,7 +321,7 @@ def _moe(p: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
             *gate, up, down = experts
             ht = L.reshape(hgrp, tg, d)
             with span("moe.route"):
-                gv, ix = _route(p, ht, m.top_k)
+                gv, ix = _route_gates(p, ht, m)
             with span("moe.dispatch"):
                 onehot = F.one_hot(ix, m.n_experts).float()      # [t,k,e]
                 load = onehot.sum(1)                             # [t,e]
@@ -380,8 +397,9 @@ def _attn_qkv(p: Dict, cfg: ArchConfig, h: torch.Tensor, positions):
     q = L.reshape(L.linear(p["wq"], h), B, S, H, hd)
     k = L.reshape(L.linear(p["wk"], h), B, S, Hk, hd)
     v = L.reshape(L.linear(p["wv"], h), B, S, Hk, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, dict(k=k, v=v)
 
 
@@ -412,28 +430,50 @@ def _attn_apply(p: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor, ctx,
 # ===========================================================================
 # Mamba
 # ===========================================================================
+def _ssm_inputs(p: Dict, cfg: ArchConfig, mc: MambaConfig, xm: torch.Tensor):
+    """dt [..., di], B and C [..., d_state] in float32 from the conv's
+    output ``xm``: ``x_proj`` split as [dt_rank, d_state, d_state], each
+    part RMS-normed where the config has the inner norms (Jamba), then
+    dt through ``dt_w`` (+ ``dt_bias``) and a softplus."""
+    proj = L.linear(p["x_proj"], xm)
+    dt_in, b_in, c_in = torch.split(proj, [mc.dt_rank, mc.d_state,
+                                           mc.d_state], -1)
+    if mc.inner_norms:
+        dt_in = L.rmsnorm(p["dt_norm"], dt_in, cfg.norm_eps)
+        b_in = L.rmsnorm(p["b_norm"], b_in, cfg.norm_eps)
+        c_in = L.rmsnorm(p["c_norm"], c_in, cfg.norm_eps)
+    else:
+        dt_in = dt_in.float()
+    dt = F.softplus(L.linear(p["dt_w"], dt_in).float() + p["dt_bias"])
+    return dt, b_in.float(), c_in.float()
+
+
 def _mamba_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
+    """The Mamba mixer over a sequence; a served request's spans: ``mamba``
+    around it, ``mamba.scan`` around the ``ssm_scan`` kernel, and its
+    tokens counted."""
     mc = cfg.mamba or MambaConfig()
     S = x.shape[1]
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    xz = L.linear(p["in_proj"], h)
-    xm_raw, z = torch.chunk(xz, 2, dim=-1)               # [B,S,di] each
-    # depthwise causal conv1d (zeros concatenated in front: DTensor has
-    # no sound padding rule in every torch version)
-    pad = torch.cat([xm_raw.new_zeros((xm_raw.shape[0], mc.d_conv - 1,
-                                       xm_raw.shape[2])), xm_raw], dim=1)
-    conv = sum(pad[:, i:i + S] * p["conv_w"][i] for i in range(mc.d_conv))
-    xm = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
-    proj = L.linear(p["x_proj"], xm).float()
-    dt_in, B_in, C_in = torch.split(proj, [1, mc.d_state, mc.d_state], -1)
-    dt = F.softplus(L.linear(p["dt_w"], dt_in).float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])                           # [di,ds]
-    xf = xm.float()
-    y, h_final = ssm_scan(dt.contiguous(), B_in.contiguous(),
-                          C_in.contiguous(), xf.contiguous(), a)
-    y = y + p["d_skip"] * xf
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = x + L.linear(p["out_proj"], y)
+    with span("mamba"):
+        obs_trace.mamba_tokens(x.shape[0] * S)
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        xz = L.linear(p["in_proj"], h)
+        xm_raw, z = torch.chunk(xz, 2, dim=-1)               # [B,S,di] each
+        # depthwise causal conv1d (zeros concatenated in front: DTensor has
+        # no sound padding rule in every torch version)
+        pad = torch.cat([xm_raw.new_zeros((xm_raw.shape[0], mc.d_conv - 1,
+                                           xm_raw.shape[2])), xm_raw], dim=1)
+        conv = sum(pad[:, i:i + S] * p["conv_w"][i] for i in range(mc.d_conv))
+        xm = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
+        dt, B_in, C_in = _ssm_inputs(p, cfg, mc, xm)
+        a = -torch.exp(p["a_log"])                           # [di,ds]
+        xf = xm.float()
+        with span("mamba.scan"):
+            y, h_final = ssm_scan(dt.contiguous(), B_in.contiguous(),
+                                  C_in.contiguous(), xf.contiguous(), a)
+        y = y + p["d_skip"] * xf
+        y = (y * F.silu(z.float())).to(x.dtype)
+        out = x + L.linear(p["out_proj"], y)
     cache = None
     if collect:
         # conv state = the last (d_conv - 1) PRE-conv inputs
@@ -443,23 +483,27 @@ def _mamba_apply(p: Dict, cfg: ArchConfig, x: torch.Tensor, collect: bool):
 
 
 def _mamba_decode(p: Dict, cfg: ArchConfig, x_t: torch.Tensor, cache: Dict):
+    """One token of the Mamba mixer; the spans and count of
+    :func:`_mamba_apply`, ``mamba.scan`` around the state's step."""
     mc = cfg.mamba or MambaConfig()
-    h = L.rmsnorm(p["norm1"], x_t, cfg.norm_eps)
-    xz = L.linear(p["in_proj"], h)[:, 0]                 # [B, 2di]
-    xm, z = torch.chunk(xz, 2, dim=-1)
-    hist = torch.cat([cache["conv"], xm[:, None]], dim=1)  # [B,dc,di]
-    conv = (hist * p["conv_w"][None]).sum(1) + p["conv_b"]
-    xc = F.silu(conv.float()).to(x_t.dtype)
-    proj = L.linear(p["x_proj"], xc).float()
-    dt_in, B_in, C_in = torch.split(proj, [1, mc.d_state, mc.d_state], -1)
-    dt = F.softplus(L.linear(p["dt_w"], dt_in).float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
-    decay = torch.exp(dt[..., None] * a)
-    hs = decay * cache["ssm"] + (dt * xc.float())[..., None] \
-        * B_in[:, None, :]
-    y = (hs * C_in[:, None, :]).sum(-1) + p["d_skip"] * xc.float()
-    y = (y * F.silu(z.float())).to(x_t.dtype)
-    out = x_t + L.linear(p["out_proj"], y)[:, None]
+    with span("mamba"):
+        obs_trace.mamba_tokens(x_t.shape[0])
+        h = L.rmsnorm(p["norm1"], x_t, cfg.norm_eps)
+        xz = L.linear(p["in_proj"], h)[:, 0]                 # [B, 2di]
+        xm, z = torch.chunk(xz, 2, dim=-1)
+        hist = torch.cat([cache["conv"], xm[:, None]], dim=1)  # [B,dc,di]
+        conv = (hist * p["conv_w"][None]).sum(1) + p["conv_b"]
+        xc = F.silu(conv.float()).to(x_t.dtype)
+        dt, B_in, C_in = _ssm_inputs(p, cfg, mc, xc)
+        a = -torch.exp(p["a_log"])
+        with span("mamba.scan"):
+            decay = torch.exp(dt[..., None] * a)
+            hs = decay * cache["ssm"] + (dt * xc.float())[..., None] \
+                * B_in[:, None, :]
+            y = (hs * C_in[:, None, :]).sum(-1)
+        y = y + p["d_skip"] * xc.float()
+        y = (y * F.silu(z.float())).to(x_t.dtype)
+        out = x_t + L.linear(p["out_proj"], y)[:, None]
     return out, dict(conv=hist[:, 1:].to(x_t.dtype), ssm=hs)
 
 
@@ -658,8 +702,9 @@ def block_decode(params: Dict, cfg: ArchConfig, kind: str, moe_on: bool,
                 q = L.reshape(L.linear(params["wq"], h), B, 1, H, hd)
                 k = L.reshape(L.linear(params["wk"], h), B, 1, Hk, hd)
                 v = L.reshape(L.linear(params["wv"], h), B, 1, Hk, hd)
-                q = L.apply_rope(q, positions, cfg.rope_theta)
-                k = L.apply_rope(k, positions, cfg.rope_theta)
+                if cfg.rope:
+                    q = L.apply_rope(q, positions, cfg.rope_theta)
+                    k = L.apply_rope(k, positions, cfg.rope_theta)
                 S = cache["k"].shape[1]
                 kt, vt = attn.cache_update(cache["k_tail"], cache["v_tail"], k,
                                            v, tpos)

@@ -3,8 +3,10 @@ zoo: dense GQA models (Llama 3.1 8B, SmolLM with tied embeddings, the
 Qwens with QKV bias), MiniCPM3's MLA, prefix VLMs (SmolVLM) and
 cross-attention VLMs (Llama 3.2 Vision), MoE models (Mixtral's top-2
 experts with a sliding window, Llama 4 Maverick's top-1 with a shared
-expert every 2 layers), the Mamba/attention hybrid with MoE (Jamba v0.1),
-the Whisper encoder-decoder and xLSTM.
+expert every 2 layers), the Mamba/attention hybrid with MoE (Jamba v0.1:
+the zoo's block, and the published one, ``configs/ai21_jamba2_mini``, whose
+attention sits at slot 4 of its period), the Whisper encoder-decoder and
+xLSTM.
 
 Depth is (n_periods x period), as in the reference: ``period`` is the
 smallest repeating block pattern (dense: 1; Jamba: 8 = 1 attn + 7 mamba;

@@ -34,12 +34,14 @@ LM and its blocks then open :func:`serving_span` at each layer boundary:
 
     serve.request > serve.prefill | serve.extend_caches |
         serve.decode_step (> serve.flush_tails) | serve.to_host
-    > attn | lm.head | moe > moe.route, then moe.gather + moe.experts
-      (one token a row), moe.dense (up to 512 tokens) or moe.dispatch +
-      moe.experts + moe.combine (the grouped capacity dispatch)
+    > attn | lm.head | mamba > mamba.scan | moe > moe.route, then
+      moe.gather + moe.experts (one token a row), moe.dense (up to 512
+      tokens) or moe.dispatch + moe.experts + moe.combine (the grouped
+      capacity dispatch)
 
-and the MoE block counts its token-expert assignments and those dropped
-past capacity (:func:`moe_assignments`).  A span keeps its name, its
+the MoE block counts its token-expert assignments and those dropped
+past capacity (:func:`moe_assignments`), and the Mamba mixer the tokens
+it takes (:func:`mamba_tokens`).  A span keeps its name, its
 parent's name, its start on the Unix epoch clock (the clock the
 profiler's events carry, so the spans can be laid on a device timeline),
 its host seconds and, on a CUDA device, a pair of timing events on the
@@ -49,7 +51,8 @@ the request's tokens reached the host.  A request that completes adds
 its totals to the global registry (``lm_span_host_seconds_total``,
 ``lm_span_device_seconds_total``, ``lm_span_calls_total`` by ``span``;
 ``lm_requests_total``, ``lm_decode_steps_total``;
-``lm_moe_assignments_total``, ``lm_moe_dropped_total`` by ``phase``) and,
+``lm_moe_assignments_total``, ``lm_moe_dropped_total``,
+``lm_mamba_tokens_total`` by ``phase``) and,
 under a tracer, its spans to ``trace.jsonl`` in one write
 (:meth:`Tracer.emit_many`).  With the switch off, each span site returns
 the shared no-op span and launches, synchronises and allocates nothing.
@@ -283,8 +286,8 @@ def complete(name: str, ts: float, dur: float, cat: str = "app",
 _REQUEST_IDS = itertools.count(1)
 _EVENT_POOLS: Dict[int, List] = {}    # CUDA device index -> free events
 _serving: Optional["RequestTrace"] = None
-# the serving phases an MoE block's assignments count under, and the span
-# of generate that opens each
+# the serving phases an MoE block's assignments and a Mamba mixer's tokens
+# count under, and the span of generate that opens each
 MOE_PHASES = ("prefill", "decode")
 _PHASE_OF = {"serve.prefill": 0, "serve.decode_step": 1}
 
@@ -328,7 +331,7 @@ class _ServingSpan:
 
 
 class RequestTrace:
-    """The spans and MoE counts of one served request.
+    """The spans, MoE counts and Mamba tokens of one served request.
 
     ``spans`` holds one tuple per finished span: (name, parent's name, start
     in Unix epoch seconds, host seconds, start event, end event); the
@@ -349,6 +352,7 @@ class RequestTrace:
         self._open: List[str] = []
         self.spans: List[tuple] = []
         self.assignments = [0] * len(MOE_PHASES)
+        self.mamba_tokens = [0] * len(MOE_PHASES)
         self._dropped = None        # [len(MOE_PHASES)] int64 on the device
 
     def _mark(self):
@@ -359,8 +363,17 @@ class RequestTrace:
         ev.record(self._stream)
         return ev
 
+    def _phase(self) -> Optional[int]:
+        return next((_PHASE_OF[s] for s in self._open if s in _PHASE_OF),
+                    None)
+
+    def count_mamba(self, n: int) -> None:
+        i = self._phase()
+        if i is not None:
+            self.mamba_tokens[i] += n
+
     def count_moe(self, n: int, keep) -> None:
-        i = next((_PHASE_OF[s] for s in self._open if s in _PHASE_OF), None)
+        i = self._phase()
         if i is None:
             return
         self.assignments[i] += n
@@ -411,6 +424,9 @@ class RequestTrace:
                 lb = {"phase": phase}
                 reg.counter("lm_moe_assignments_total", lb).inc(n)
                 reg.counter("lm_moe_dropped_total", lb).inc(n_drop)
+        for phase, n in zip(MOE_PHASES, self.mamba_tokens):
+            if n:
+                reg.counter("lm_mamba_tokens_total", {"phase": phase}).inc(n)
         if records:
             tracer.emit_many(records)
 
@@ -448,3 +464,11 @@ def moe_assignments(n: int, keep=None) -> None:
     r = _serving
     if r is not None:
         r.count_moe(n, keep)
+
+
+def mamba_tokens(n: int) -> None:
+    """Count ``n`` tokens (batch rows x positions) through a Mamba mixer in
+    the served request's phase."""
+    r = _serving
+    if r is not None:
+        r.count_mamba(n)

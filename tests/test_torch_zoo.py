@@ -1,6 +1,8 @@
 """The port's config zoo (``repro_torch.configs``) against the reference's:
 the twelve architectures in the reference's order, each full-size
-``CONFIG`` and ``reduced()`` equal field for field, and the workload
+``CONFIG`` and ``reduced()`` equal field for field (the port's own
+options, which the published Jamba block needs, at the defaults that keep
+the reference's model), and the workload
 extraction (``repro_torch.workload.extract``) of every architecture at
 full width equal to the reference's for each phase and datapath dtype."""
 import dataclasses
@@ -19,12 +21,32 @@ def test_arch_ids_are_the_reference_zoo_in_order():
     assert len(configs.ARCH_IDS) == 12
 
 
+# fields of the port's config the reference's lacks, each with the value
+# that keeps the reference's model
+PORT_OPTIONS = {"rope": True, "attn_offset": 0,
+                "moe": {"renormalize": True},
+                "mamba": {"dt_rank": 1, "inner_norms": False}}
+
+
+def _reference_fields(d: dict, options: dict = PORT_OPTIONS) -> dict:
+    """A port config's ``asdict`` with the port's own options taken out,
+    each checked to hold its default."""
+    out = dict(d)
+    for k, v in options.items():
+        if isinstance(v, dict):
+            if out[k] is not None:
+                out[k] = _reference_fields(out[k], v)
+        else:
+            assert out.pop(k) == v, k
+    return out
+
+
 @pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_config_and_reduced_equal_the_reference(arch):
-    assert dataclasses.asdict(configs.get_config(arch)) == \
-        dataclasses.asdict(ref_configs.get_config(arch))
-    assert dataclasses.asdict(configs.get_reduced(arch)) == \
-        dataclasses.asdict(ref_configs.get_reduced(arch))
+    assert _reference_fields(dataclasses.asdict(configs.get_config(arch))) \
+        == dataclasses.asdict(ref_configs.get_config(arch))
+    assert _reference_fields(dataclasses.asdict(configs.get_reduced(arch))) \
+        == dataclasses.asdict(ref_configs.get_reduced(arch))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
